@@ -3,11 +3,13 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_profile.py [--evals 35]
+    python3 chip_profile.py [--target mvn_6d|halfnorm2_noisy] [--evals N]
 
-It builds the sweep kernel, then runs `vbmc_tpu_torch.vbmc` on the 6-D
-Gaussian of `chip_smoke.py` (seed 3) twice in one process: once plainly,
-then under `torch.profiler` with CUDA activity only. From the profiled run's
+It builds the sweep kernels, then runs `vbmc_tpu_torch.vbmc` on one target
+of `chip_smoke.py` twice in one process: once plainly, then under
+`torch.profiler` with CUDA activity only. The targets: the 6-D Gaussian
+(seed 3; the noiseless path) and the noisy 2-D half-normal (seed 1, the
+target returns its value and SD 1; the noisy path). From the profiled run's
 device events (kernels, copies, sets) it reports their number, the union of
 their intervals ("busy"), the busy share of the profiled run's own wall time
 (measured), and busy over the plain run's wall time (an estimate across the
@@ -32,23 +34,40 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def run(torch, evals):
+def run(torch, target, evals):
     from vbmc_tpu_torch import VBMCOptions, vbmc
 
-    D = 6
-    sd = np.linspace(0.6, 1.4, D)
-    lnz = 1.7
+    if target == "mvn_6d":
+        D = 6
+        sd = np.linspace(0.6, 1.4, D)
+        lnz = 1.7
 
-    def logp(x):
-        return (-0.5 * np.sum((x / sd) ** 2) - 0.5 * D * np.log(2 * np.pi)
-                - np.sum(np.log(sd)) + lnz)
+        def logp(x):
+            return (-0.5 * np.sum((x / sd) ** 2) - 0.5 * D * np.log(2 * np.pi)
+                    - np.sum(np.log(sd)) + lnz)
 
+        kw = dict(x0=np.full(D, 0.3), plb=np.full(D, -4.0),
+                  pub=np.full(D, 4.0),
+                  options=VBMCOptions(display="off", max_fun_evals=evals,
+                                      seed=3, min_final_components=20))
+    else:
+        D, seed = 2, 1
+        sd = np.array([1.0, 0.6])
+        noise = np.random.default_rng(1000 + seed)
+
+        def logp(x):
+            y = (-0.5 * np.sum((x / sd) ** 2) - np.log(2 * np.pi)
+                 - np.sum(np.log(sd)))
+            return float(y + noise.standard_normal()), 1.0
+
+        kw = dict(x0=np.array([0.5, 0.5]), lb=np.zeros(D),
+                  ub=np.full(D, 10.0), plb=np.full(D, 0.05),
+                  pub=np.full(D, 3.0),
+                  options=VBMCOptions(display="off", max_fun_evals=evals,
+                                      seed=seed, min_final_components=20,
+                                      specify_target_noise=True))
     t = time.monotonic()
-    res = vbmc(logp, x0=np.full(D, 0.3), plb=np.full(D, -4.0),
-               pub=np.full(D, 4.0),
-               options=VBMCOptions(display="off", max_fun_evals=evals, seed=3,
-                                   min_final_components=20),
-               device="cuda", dtype=torch.float64)
+    res = vbmc(logp, device="cuda", dtype=torch.float64, **kw)
     torch.cuda.synchronize()
     return res, time.monotonic() - t
 
@@ -68,6 +87,8 @@ def busy_union_s(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--target", choices=("mvn_6d", "halfnorm2_noisy"),
+                    default="mvn_6d")
     ap.add_argument("--evals", type=int, default=35,
                     help="max_fun_evals of each run (default 35; the options "
                          "raise it to min_fun_evals, 35 at D=6)")
@@ -87,14 +108,16 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    from vbmc_tpu_torch.kernels import prospective_acq
-    prospective_acq.load()
+    from vbmc_tpu_torch import kernels
+    kernels.build_all()
+    kernels.prospective_acq.load()
+    kernels.viqr_acq.load()
 
-    res, plain_s = run(torch, args.evals)
+    res, plain_s = run(torch, args.target, args.evals)
     print(f"plain run: {plain_s:.3f} s, {res.func_count} evaluations",
           flush=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res, prof_s = run(torch, args.evals)
+        res, prof_s = run(torch, args.target, args.evals)
     print(f"profiled run: {prof_s:.3f} s, {res.func_count} evaluations",
           flush=True)
 
@@ -108,7 +131,8 @@ def main():
     busy = busy_union_s(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     print(json.dumps({
-        "device": smi, "evals": res.func_count,
+        "device": smi, "target": args.target, "evals": res.func_count,
+        "timers": {k: round(v, 3) for k, v in res.timers.items()},
         "device_events": len(intervals),
         "device_busy_s": busy,
         "device_sum_s": sum(by_name.values()) / 1e9,

@@ -143,7 +143,7 @@ def test_wrapper_refuses_configurations_outside_the_kernel(change):
 
 def test_unported_acquisition_raises():
     with pytest.raises(NotImplementedError):
-        tacq.check_acq("viqr")
+        tacq.check_acq("eig")
 
 
 @pytest.mark.cuda

@@ -44,13 +44,78 @@ def test_mvn_2d_unconstrained():
     _check(res, lnz, mu_true)
 
 
+def test_noisy_halfnormal_viqr():
+    """The noisy half-normal of `tests/test_e2e.py:61-80` (sigma=1 additive
+    noise, the target returns its SD; the noise stream of `bench.py`
+    `halfnorm2_noisy`): VIQR with its importance-sampling set, the GP with
+    user noise and the per-point full updates, at the smallest evaluation
+    budget that meets the gate here (25; the card runs 100)."""
+    D = 2
+    sd = np.array([1.0, 0.6])
+    seed = 2
+    noise = np.random.default_rng(1000 + seed)
+
+    def logp(x):
+        y = (-0.5 * np.sum((x / sd) ** 2) - np.log(2 * np.pi)
+             - np.sum(np.log(sd)))
+        return float(y + noise.standard_normal()), 1.0
+
+    opts = VBMCOptions(display="off", max_fun_evals=25, seed=seed,
+                       min_final_components=20, specify_target_noise=True)
+    res = vbmc(logp, x0=np.array([0.5, 0.5]), lb=np.zeros(D),
+               ub=np.full(D, 10.0), plb=np.full(D, 0.05),
+               pub=np.full(D, 3.0), options=opts, device="cpu")
+    assert res.func_count == 25
+    assert res.quick_updates > 0
+    _check(res, float(np.log(0.25)), sd * np.sqrt(2 / np.pi))
+
+
+def test_noisy_acquisition_hedge_chooses_between_viqr_and_imiqr(monkeypatch):
+    """With two acquisitions and ``acq_hedge`` the hedge of the reference
+    (`vbmc_tpu.hedge.AcqHedge`) picks one per iteration and is rewarded
+    after each; at this seed it picks each once, so IMIQR runs end to end.
+    The target is an unnormalised 2-D Gaussian (lnZ = log 2 pi) with
+    sigma=0.3 noise."""
+    from vbmc_tpu.hedge import AcqHedge
+    chosen, rewards = [], []
+    choose, update = AcqHedge.choose, AcqHedge.update
+
+    def spy_choose(self, rng):
+        chosen.append(choose(self, rng))
+        return chosen[-1]
+
+    def spy_update(self, *a):
+        rewards.append(a)
+        return update(self, *a)
+
+    monkeypatch.setattr(AcqHedge, "choose", spy_choose)
+    monkeypatch.setattr(AcqHedge, "update", spy_update)
+    noise = np.random.default_rng(3)
+
+    def logp(x):
+        y = -0.5 * np.sum(x ** 2)
+        return float(y + 0.3 * noise.standard_normal()), 0.3
+
+    opts = VBMCOptions(display="off", max_fun_evals=20, seed=2,
+                       specify_target_noise=True, acq_hedge=True,
+                       search_acq_fcn=["viqr", "imiqr"])
+    res = vbmc(logp, x0=np.zeros(2), plb=np.full(2, -2.0),
+               pub=np.full(2, 2.0), options=opts, device="cpu")
+    assert res.func_count == 20
+    assert abs(res.elbo - np.log(2 * np.pi)) < 0.5
+    assert sorted(chosen) == ["imiqr", "viqr"]
+    assert len(rewards) == res.iterations - 1
+
+
 @pytest.mark.parametrize("override", [
-    dict(specify_target_noise=True), dict(uncertainty_handling=True),
-    dict(search_acq_fcn=["viqr"]), dict(search_acq_fcn=["us"]),
+    dict(max_repeated_observations=2, specify_target_noise=True),
+    dict(search_acq_fcn=["prospective_sn2"]),
+    dict(search_acq_fcn=["eig"]), dict(search_acq_fcn=["us"]),
     dict(gp_mean_fun="se"), dict(fitness_shaping=True),
     dict(gp_int_mean_fun=1), dict(bandwidth=0.1), dict(integer_vars=[0]),
-    dict(plot=True), dict(noise_shaping=True), dict(temperature=2),
-    dict(retry_max_fun_evals=10), dict(hpd_search_frac=0.1),
+    dict(plot=True), dict(search_acq_fcn=["prospective_log"]),
+    dict(temperature=2), dict(retry_max_fun_evals=10),
+    dict(hpd_search_frac=0.1),
 ])
 def test_options_outside_the_slice_raise(override):
     opts = VBMCOptions(display="off", **override)

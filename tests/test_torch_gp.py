@@ -65,7 +65,8 @@ def test_nlz_and_gradient_match_jax():
     tcfg = TGPConfig(D=3)
     th = torch.tensor(hyps, requires_grad=True)
     nlz_t = tcore.neg_log_marginal_likelihood(
-        tcfg, th, torch.tensor(Xp), torch.tensor(yp), torch.tensor(mask))
+        tcfg, th, torch.tensor(Xp), torch.tensor(yp), torch.zeros(32),
+        torch.tensor(mask))
     (g_t,) = torch.autograd.grad(nlz_t.sum(), th)
     for s in range(hyps.shape[0]):
         v, g = jax.value_and_grad(jf)(jnp.asarray(hyps[s]))

@@ -134,7 +134,8 @@ def test_lbfgs_reaches_jax_map_minimum():
 
     def tobj(h):
         nll = (tcore.neg_log_marginal_likelihood(
-            tcfg, h, torch.tensor(Xp), torch.tensor(yp), torch.tensor(mask))
+            tcfg, h, torch.tensor(Xp), torch.tensor(yp), torch.zeros(32),
+            torch.tensor(mask))
             - tcore.hyperprior_logpdf(tp, h))
         return torch.where(torch.isfinite(nll), nll, 1e12)
 

@@ -1,4 +1,5 @@
-"""vbmc_tpu_torch: the VBMC main path in PyTorch, for one NVIDIA H100.
+"""vbmc_tpu_torch: VBMC in PyTorch, for one NVIDIA H100: the noiseless main
+path and the noisy-target path.
 
 A port of `vbmc_tpu` (the JAX reference, which stays beside it). The
 package imports torch and numpy and never jax. It reuses three numpy-only
@@ -6,8 +7,9 @@ modules of the reference by import: `vbmc_tpu.options`, `vbmc_tpu.state`
 and `vbmc_tpu.hedge`.
 
 The acquisition sweep of every acquired point runs as a hand-written CUDA
-kernel on CUDA tensors (`kernels.py`, `csrc/prospective_acq.cu`); on CPU
-tensors the same wrapper runs its plain PyTorch version.
+kernel on CUDA tensors (`kernels.py`: `csrc/prospective_acq.cu` for
+noiseless targets, `csrc/viqr_acq.cu` for noisy ones); on CPU tensors the
+same wrapper runs its plain PyTorch version.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
-"""Active sampling for noiseless targets (cf. `vbmc_tpu/active_sample.py`,
+"""Active sampling (cf. `vbmc_tpu/active_sample.py`,
 `private/activesample_vbmc.m`, `misc/initdesign_vbmc.m`): initial design,
-candidate generation, the acquisition sweep (the CUDA kernel on the card),
-CMA-ES refinement, target evaluation and GP refresh."""
+candidate generation, the acquisition sweep (a CUDA kernel on the card:
+prospective for noiseless targets, VIQR / IMIQR with an importance-sampling
+set for noisy ones), CMA-ES refinement, target evaluation, and the GP
+refresh or, on noisy targets, the per-point full update."""
 
 from __future__ import annotations
 
@@ -15,9 +17,13 @@ from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.gp import GP, build_gp
 from vbmc_tpu_torch.function_logger import FunctionLogger
 from vbmc_tpu_torch.vp import VariationalPosterior, vp_rnd, vp_moments
-from vbmc_tpu_torch.acquisitions import (evaluate_acquisition,
+from vbmc_tpu_torch.acquisitions import (ACQ_INFO, evaluate_acquisition,
                                          sweep_acquisition, AcqState)
+from vbmc_tpu_torch.active_is import (build_is_state_core,
+                                      evaluate_is_acquisition,
+                                      sweep_is_acquisition)
 from vbmc_tpu_torch.samplers.cmaes import cmaes_minimize
+from vbmc_tpu_torch.vpoptim import fractional_ess
 from vbmc_tpu_torch.utils.math import bucket_n, pad_to, to_np
 
 
@@ -157,10 +163,34 @@ def _propose_point(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
                               max_evals, popsize)
 
 
+def _propose_point_is(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
+                      sb_lb, sb_ub, n_search: int, n_heavy: int, n_mvn: int,
+                      n_box: int, n_is_vp: int, n_is_box: int,
+                      n_is_mcmc: int, mh_steps: int, fess_thresh: float,
+                      max_evals: int, popsize: int):
+    """One VIQR / IMIQR acquisition step: importance-sampling set ->
+    candidates -> sweep -> argmin -> CMA-ES on the plain evaluation. The
+    set is rebuilt for every point: the GP posterior changes as
+    evaluations accrue (`activesample_vbmc.m:208-211`)."""
+    ais = build_is_state_core(gen, cfg, name, vp, gp, n_is_vp, n_is_box,
+                              n_is_mcmc, mh_steps=mh_steps,
+                              fess_thresh=fess_thresh)
+    Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search, n_heavy,
+                                n_mvn, n_box)
+    acq = sweep_is_acquisition(cfg, name, Xs, vp, gp, state, ais)
+
+    def f_batch(xs):
+        return evaluate_is_acquisition(cfg, name, xs, vp, gp, state, ais)
+
+    return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
+                              max_evals, popsize)
+
+
 def gp_reupdate(cfg: GPConfig, gp: GP, logger: FunctionLogger) -> GP:
-    """Refresh the GP posterior on the current training data, keeping the
-    hyperparameter samples (`misc/gpreupdate.m`)."""
-    X, y, _ = logger.training_data()
+    """Refresh the GP posterior on the current training data (with the
+    logger's noise variances), keeping the hyperparameter samples
+    (`misc/gpreupdate.m`)."""
+    X, y, s2 = logger.training_data()
     n = X.shape[0]
     nb = bucket_n(n)
     dev, dt = gp.X.device, gp.X.dtype
@@ -168,7 +198,8 @@ def gp_reupdate(cfg: GPConfig, gp: GP, logger: FunctionLogger) -> GP:
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev, dtype=dt)
 
-    return build_gp(cfg, t(pad_to(X, nb)), t(pad_to(y, nb)), t(np.zeros(nb)),
+    return build_gp(cfg, t(pad_to(X, nb)), t(pad_to(y, nb)),
+                    t(np.zeros(nb) if s2 is None else pad_to(s2, nb)),
                     torch.as_tensor(np.arange(nb) < n, device=dev), gp.hyp,
                     gp.hyp_mask)
 
@@ -202,14 +233,27 @@ def check_search_options(options):
             "slice 3)")
     if len(options.integer_vars):
         raise NotImplementedError("integer_vars is ROADMAP Queue 1, slice 3")
+    if options.uncertainty_handling and options.max_repeated_observations > 0:
+        raise NotImplementedError(
+            "repeated observations of noisy targets "
+            "(max_repeated_observations > 0) are ROADMAP Queue 1, slice 3")
 
 
 def active_sample(gen: torch.Generator, cfg: GPConfig,
                   logger: FunctionLogger, n_points: int,
                   vp: VariationalPosterior, gp: GP, sb: SearchBounds,
-                  options, *, acq_name: str, tol_gp_var: float):
-    """Acquire ``n_points`` new evaluations of a noiseless target; returns
-    the GP refreshed on the enlarged training set (hyperparameters kept)."""
+                  options, *, acq_name: str, tol_gp_var: float,
+                  full_update: bool = False, quick_updater=None,
+                  fess_thresh: float = 1.0):
+    """Acquire ``n_points`` new evaluations; returns (gp, vp), the GP
+    refreshed on the enlarged training set.
+
+    With ``full_update`` (noisy targets near the end of warm-up or on
+    unstable runs, `activesample_vbmc.m:46-76, 429-473`) the
+    ``quick_updater(gen, logger, gp, vp) -> (gp, vp, gls)`` re-trains the GP
+    hyperparameters and re-fits the VP after each acquired point, gated on
+    the fractional effective sample size when ``fess_thresh`` < 1;
+    otherwise the GP keeps its hyperparameters."""
     check_search_options(options)
     dt, dev = gp.X.dtype, gp.X.device
 
@@ -224,18 +268,44 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                   n_box=int(round(options.box_search_frac * ns)),
                   max_evals=options.search_max_fun_evals,
                   popsize=options.search_cmaes_popsize)
+    if ACQ_INFO[acq_name]["importance_sampling"]:
+        propose = _propose_point_is
+        common.update(
+            n_is_vp=int(options.active_importance_sampling_vp_samples),
+            n_is_box=int(options.active_importance_sampling_box_samples),
+            n_is_mcmc=int(options.active_importance_sampling_mcmc_samples),
+            mh_steps=int(options.active_importance_sampling_mh_steps),
+            fess_thresh=float(options.active_importance_sampling_fess_thresh))
+    else:
+        propose = _propose_point
     sb_lb, sb_ub = t(sb.lb), t(sb.ub)
+    gls = t(_geomean_length_scale(cfg, gp))
     for i in range(n_points):
         state = AcqState(ymax=t(logger.ymax), tol_var=t(tol_gp_var),
                          lb_eps_orig=t(lb_eps), ub_eps_orig=t(ub_eps),
-                         regularize=True)
+                         regularize=True, gp_length_scale=gls)
         with torch.no_grad():
-            x_new, _ = _propose_point(cfg, acq_name, gen, vp, gp, state,
-                                      sb_lb, sb_ub, **common)
+            x_new, _ = propose(cfg, acq_name, gen, vp, gp, state, sb_lb,
+                               sb_ub, **common)
         x_best = to_np(x_new)
         logger.evaluate(x_best)
         if sb.expand(x_best):
             sb_lb, sb_ub = t(sb.lb), t(sb.ub)
-        if i < n_points - 1:
+        if i == n_points - 1:
+            break
+        if full_update and quick_updater is not None:
+            do_update = True
+            if fess_thresh < 1.0:
+                # fESS gate (`activesample_vbmc.m:436-445`): skip the
+                # retrain and refit while the VP still matches the
+                # refreshed GP well enough.
+                gp_tmp = gp_reupdate(cfg, gp, logger)
+                do_update = fractional_ess(gen, cfg, vp, gp_tmp,
+                                           100) <= fess_thresh
+                if not do_update:
+                    gp = gp_tmp
+            if do_update:
+                gp, vp, gls = quick_updater(gen, logger, gp, vp)
+        else:
             gp = gp_reupdate(cfg, gp, logger)
-    return gp_reupdate(cfg, gp, logger)
+    return gp_reupdate(cfg, gp, logger), vp

@@ -2,9 +2,9 @@
 
 The inputs are plain mappings of field name to array, for example what
 ``jax.device_get(x._asdict())`` gives for the reference's `GP`,
-`VariationalPosterior`, `Trinfo` and `HypPrior` named tuples, so both
-packages can compute on the same state. Nothing here imports jax; nested
-named tuples (a VP's trinfo) are accepted through their ``_asdict``.
+`VariationalPosterior`, `Trinfo`, `HypPrior` and `ISState` named tuples, so
+both packages can compute on the same state. Nothing here imports jax;
+nested named tuples (a VP's trinfo) are accepted through their ``_asdict``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vbmc_tpu_torch.active_is import ISState
 from vbmc_tpu_torch.gp.gp import GP, HypPrior
 from vbmc_tpu_torch.transforms import Trinfo, trinfo_from_np
 from vbmc_tpu_torch.vp import VariationalPosterior, vp_from_np
@@ -61,3 +62,9 @@ def hyp_prior_from_dict(d, device="cpu", dtype=torch.float64) -> HypPrior:
     return HypPrior(**{k: _t(f[k], device, dtype)
                        for k in ("mu", "sigma", "df", "lb", "ub", "plb",
                                  "pub")})
+
+
+def is_state_from_dict(d, device="cpu", dtype=torch.float64) -> ISState:
+    f = _fields(d)
+    return ISState(**{k: _t(f[k], device, dtype)
+                      for k in ("Xa", "ln_weights", "invKzk", "f_s2")})

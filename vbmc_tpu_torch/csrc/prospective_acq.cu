@@ -25,44 +25,22 @@
 // holds here (227 KB of shared memory, blocks in no order).
 //
 // What the design does about it. Pass 1 runs on a grid (ceil(M/64), S):
-// each block owns 64 candidates of one sample and streams Binv_s through
-// shared memory in 64 x 16 tiles, forming Binv_s ks for 64 rows at a time in
-// registers (a 4 x 4 micro-tile per thread) and folding it straight into
-// the per-candidate sums, so no N x M product is ever stored. The ks slabs
-// are recomputed from X (D <= 32) instead of stored. Results go to an
-// (S, M) workspace. Pass 2, one thread per candidate, reduces over samples
-// (two-pass, masked), evaluates the mixture density with an online
-// log-sum-exp and the acquisition. Ragged M and N edges are masked in the
-// kernel. Making it fast (wgmma, TMA, symmetric Binv) is later work.
+// each block owns 64 candidates of one sample and computes their
+// predictive mean and variance with the shared tile machinery of
+// gp_tile.cuh (Binv_s streamed through shared memory in 64 x 16 tiles,
+// Binv_s ks formed 64 rows at a time in registers and folded straight into
+// the per-candidate sums, ks slabs recomputed from X), so no N x M product
+// is ever stored. Results go to an (S, M) workspace. Pass 2, one thread
+// per candidate, reduces over samples (two-pass, masked), evaluates the
+// mixture density with an online log-sum-exp and the acquisition. Ragged
+// M and N edges are masked in the kernel. Making it fast (wgmma, TMA,
+// symmetric Binv) is later work.
 
-#include <cuda_runtime.h>
-#include <cfloat>
-#include <cmath>
+#include "gp_tile.cuh"
 
 namespace {
 
-constexpr int kMT = 64;        // candidates per block
-constexpr int kTI = 64;        // Binv rows per row tile
-constexpr int kTJ = 16;        // Binv columns per inner step
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxD = 32;
-constexpr int kCS = kMaxD + 1;  // candidate row stride (bank-conflict pad)
-constexpr double kLog2Pi = 1.8378770664093453;
-
-__device__ __forceinline__ double fexp(double x) { return exp(x); }
-__device__ __forceinline__ float fexp(float x) { return expf(x); }
-__device__ __forceinline__ double flog(double x) { return log(x); }
-__device__ __forceinline__ float flog(float x) { return logf(x); }
-
-template <typename T> struct Lim;
-template <> struct Lim<double> {
-  static __device__ __forceinline__ double tiny() { return DBL_MIN; }
-  static __device__ __forceinline__ double big() { return DBL_MAX; }
-};
-template <> struct Lim<float> {
-  static __device__ __forceinline__ float tiny() { return FLT_MIN; }
-  static __device__ __forceinline__ float big() { return FLT_MAX; }
-};
+using namespace vbmc;
 
 // Pass 1: per-sample predictive mean and variance of a 64-candidate tile.
 template <typename T>
@@ -76,126 +54,17 @@ predict_kernel(const T* __restrict__ Xs, const T* __restrict__ X,
   const int s = blockIdx.y;
   if (smask[s] == T(0)) return;  // masked sample: pass 2 skips it
   const int m0 = blockIdx.x * kMT;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  __shared__ T inv_ell[kMaxD];
-  __shared__ T cand[kMT * kCS];  // candidates scaled by 1/ell
-  __shared__ T Bt[kTI][kTJ + 1];
-  __shared__ T ksJ[kTJ][kMT];      // also the reduction buffer at the end
-
+  __shared__ TileSmem<T> sm;
   const T* hyp_s = hyp + (size_t)s * nhyp;
-  const T* Binv_s = Binv + (size_t)s * N * N;
-  const T* alpha_s = alpha + (size_t)s * N;
-  const T sf2 = fexp(T(2) * hyp_s[D]);
-  if (tid < D) inv_ell[tid] = fexp(-hyp_s[tid]);
-  __syncthreads();
-  for (int e = tid; e < kMT * D; e += kThreads) {
-    const int mm = e / D, d = e % D;
-    const int m = m0 + mm;
-    cand[mm * kCS + d] = (m < M ? Xs[(size_t)m * D + d] : T(0)) * inv_ell[d];
-  }
-  __syncthreads();
-
-  T qf_part[4] = {0, 0, 0, 0};
-  T fmu_part[4] = {0, 0, 0, 0};
-
-  for (int i0 = 0; i0 < N; i0 += kTI) {
-    T acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
-
-    for (int j0 = 0; j0 < N; j0 += kTJ) {
-      for (int e = tid; e < kTI * kTJ; e += kThreads) {
-        const int r = e / kTJ, c = e % kTJ;
-        const int i = i0 + r, j = j0 + c;
-        Bt[r][c] = (i < N && j < N) ? Binv_s[(size_t)i * N + j] : T(0);
-      }
-      for (int e = tid; e < kTJ * kMT; e += kThreads) {
-        const int r = e / kMT, c = e % kMT;
-        const int j = j0 + r;
-        T v = T(0);
-        if (j < N && nmask[j] != T(0)) {
-          T d2 = T(0);
-          for (int d = 0; d < D; ++d) {
-            const T diff = X[(size_t)j * D + d] * inv_ell[d] - cand[c * kCS + d];
-            d2 += diff * diff;
-          }
-          v = sf2 * fexp(T(-0.5) * d2);
-        }
-        ksJ[r][c] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kTJ; ++k) {
-        T a[4], b[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = Bt[ty + 16 * r][k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = ksJ[k][tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] += a[r] * b[c];
-      }
-      __syncthreads();
-    }
-
-    // Fold the finished rows into the per-candidate sums.
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty + 16 * r;
-      if (i >= N || nmask[i] == T(0)) continue;
-      const T a_i = alpha_s[i];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c;
-        T d2 = T(0);
-        for (int d = 0; d < D; ++d) {
-          const T diff = X[(size_t)i * D + d] * inv_ell[d] - cand[col * kCS + d];
-          d2 += diff * diff;
-        }
-        const T kv = sf2 * fexp(T(-0.5) * d2);
-        qf_part[c] += kv * acc[r][c];
-        fmu_part[c] += kv * a_i;
-      }
-    }
-  }
-
-  // Reduce the 16 row-partials of each candidate column.
-#pragma unroll
-  for (int c = 0; c < 4; ++c) ksJ[ty][tx + 16 * c] = qf_part[c];
-  __syncthreads();
-  T qf = T(0);
-  if (tid < kMT)
-    for (int t = 0; t < 16; ++t) qf += ksJ[t][tid];
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < 4; ++c) ksJ[ty][tx + 16 * c] = fmu_part[c];
-  __syncthreads();
-  if (tid < kMT) {
-    T f = T(0);
-    for (int t = 0; t < 16; ++t) f += ksJ[t][tid];
-    const int m = m0 + tid;
-    if (m < M) {
-      T mean = T(0);
-      if (meanfun == 1) {
-        mean = hyp_s[mean_off];
-      } else if (meanfun == 4) {
-        T q = T(0);
-        for (int d = 0; d < D; ++d) {
-          const T z = (Xs[(size_t)m * D + d] - hyp_s[mean_off + 1 + d]) *
-                      fexp(-hyp_s[mean_off + 1 + D + d]);
-          q += z * z;
-        }
-        mean = hyp_s[mean_off] - T(0.5) * q;
-      }
-      const T v = sf2 - qf;
-      fmu_out[(size_t)s * M + m] = mean + f;
-      fs2_out[(size_t)s * M + m] = v < T(0) ? T(0) : v;
-    }
+  load_candidates(sm, hyp_s, Xs, m0, M, D);
+  T fmu, fs2;
+  predict_tile(sm, Xs, X, nmask, hyp_s, alpha + (size_t)s * N,
+               Binv + (size_t)s * N * N, m0, M, N, D, meanfun, mean_off, fmu,
+               fs2);
+  const int m = m0 + threadIdx.x;
+  if (threadIdx.x < kMT && m < M) {
+    fmu_out[(size_t)s * M + m] = fmu;
+    fs2_out[(size_t)s * M + m] = fs2;
   }
 }
 
@@ -209,24 +78,8 @@ __global__ void acq_kernel(const T* __restrict__ Xs, const T* __restrict__ fmu,
                            T ymax, T tol_var, int regularize) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
-  T ns = T(0), sf = T(0), sv = T(0);
-  for (int s = 0; s < S; ++s) {
-    if (smask[s] == T(0)) continue;
-    ns += T(1);
-    sf += fmu[(size_t)s * M + m];
-    sv += fs2[(size_t)s * M + m];
-  }
-  const T nsc = ns > T(1) ? ns : T(1);
-  const T fbar = sf / nsc;
-  const T vbar = sv / nsc;
-  T ss = T(0);
-  for (int s = 0; s < S; ++s) {
-    if (smask[s] == T(0)) continue;
-    const T dv = fmu[(size_t)s * M + m] - fbar;
-    ss += dv * dv;
-  }
-  const T nsm1 = ns - T(1) > T(1) ? ns - T(1) : T(1);
-  const T vtot = vbar + (ns > T(1) ? ss / nsm1 : T(0));
+  T ns, fbar, vtot;
+  sample_summary(fmu, fs2, smask, S, M, m, ns, fbar, vtot);
 
   T sumloglam = T(0);
   for (int d = 0; d < D; ++d) sumloglam += flog(vlam[d]);

@@ -21,12 +21,13 @@ from vbmc_tpu_torch.gp.noise import noise_variance
 _LOG2PI = 1.8378770664093453
 
 
-def _system_matrix(cfg: GPConfig, hyp: torch.Tensor, X, mask):
+def _system_matrix(cfg: GPConfig, hyp: torch.Tensor, X, s2, mask):
     """B = K + diag(sn2) with identity rows/cols on padded entries:
-    ((Bt, N, N), sn2 (Bt, N))."""
+    ((Bt, N, N), sn2 (Bt, N)). ``s2`` (N,) is the user noise variance
+    (None for noiseless targets)."""
     m = mask.to(X.dtype)
     K = kernel_cross(cfg, hyp, X, X) * (m[:, None] * m[None, :])
-    sn2 = noise_variance(cfg, hyp[:, cfg.sl_noise], X.shape[0])
+    sn2 = noise_variance(cfg, hyp[:, cfg.sl_noise], X.shape[0], s2)
     diag = sn2 * m + (1.0 - m)
     return K + torch.diag_embed(diag), sn2
 
@@ -60,10 +61,10 @@ def robust_cholesky(B: torch.Tensor):
     return L, first_ok
 
 
-def build_posterior(cfg: GPConfig, hyp: torch.Tensor, X, y, mask):
+def build_posterior(cfg: GPConfig, hyp: torch.Tensor, X, y, s2, mask):
     """Posterior factorisation for hyp (S, nhyp): alpha (S, N), L and the
     explicit inverse Binv (S, N, N), sn2 (S, N), chol_ok (S,)."""
-    B, sn2 = _system_matrix(cfg, hyp, X, mask)
+    B, sn2 = _system_matrix(cfg, hyp, X, s2, mask)
     m = mask.to(X.dtype)
     r = (y[None, :] - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
     L, ok = robust_cholesky(B)
@@ -75,12 +76,12 @@ def build_posterior(cfg: GPConfig, hyp: torch.Tensor, X, y, mask):
     return alpha, L, Binv, sn2, ok
 
 
-def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y,
+def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y, s2,
                                 mask) -> torch.Tensor:
     """Masked negative log marginal likelihood (B,), differentiable in hyp.
     Where the Cholesky fails the value is +inf and the gradient 0 (the
     factorisation is redone on an identity so no NaN reaches autograd)."""
-    B, _ = _system_matrix(cfg, hyp, X, mask)
+    B, _ = _system_matrix(cfg, hyp, X, s2, mask)
     m = mask.to(X.dtype)
     r = (y[None, :] - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
     L, info = torch.linalg.cholesky_ex(B)
@@ -113,7 +114,7 @@ def hyperprior_logpdf(prior, hyp: torch.Tensor) -> torch.Tensor:
     return torch.where(has_prior, lp, 0.0).sum(-1)
 
 
-def gp_log_posterior(cfg: GPConfig, prior, hyp, X, y, mask):
+def gp_log_posterior(cfg: GPConfig, prior, hyp, X, y, s2, mask):
     """Unnormalised log posterior of hyperparameters (B,)."""
-    return (-neg_log_marginal_likelihood(cfg, hyp, X, y, mask)
+    return (-neg_log_marginal_likelihood(cfg, hyp, X, y, s2, mask)
             + hyperprior_logpdf(prior, hyp))

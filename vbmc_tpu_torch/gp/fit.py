@@ -43,7 +43,7 @@ class TrainOptions:
     length_prior_std: float = 0.5 * np.log(1e3)
     quadratic_mean_bound: bool = True
     tol_sd: float = 0.1
-    uncertainty_level: int = 0   # 0 exact (the only ported level)
+    uncertainty_level: int = 0   # 0 exact; 1 infer noise; 2 provided noise
     upper_length_factor: float = 0.0
 
 
@@ -60,9 +60,6 @@ def assemble_hyp_prior(cfg: GPConfig, X: np.ndarray, y: np.ndarray,
                        dtype=torch.float64):
     """Bounds, priors and starting point of all hyperparameters
     (`gptrain_vbmc.m:109-311`). Returns (HypPrior, x0 (nhyp,))."""
-    if opts.uncertainty_level != 0:
-        raise NotImplementedError("noisy targets are ROADMAP Queue 1, "
-                                  "slice 2")
     D = cfg.D
     X_hpd, y_hpd = get_hpd(X, y, opts.hpd_frac)
     width = np.maximum(X_hpd.max(axis=0) - X_hpd.min(axis=0), 1e-10)
@@ -103,17 +100,37 @@ def assemble_hyp_prior(cfg: GPConfig, X: np.ndarray, y: np.ndarray,
     mu[:D] = np.log(mult * (pub_tr - plb_tr))
     sigma[:D] = opts.length_prior_std
 
-    # Constant noise (gptrain:143-165).
+    # Noise (gptrain:143-165, 180): the constant term, then the user-noise
+    # multiplier.
     ninfo = noise_info(cfg, yh)
     sl = cfg.sl_noise
     lb[sl], ub[sl] = ninfo["lb"], ninfo["ub"]
     plb[sl], pub[sl] = ninfo["plb"], ninfo["pub"]
+    x0[sl] = ninfo["x0"]
+    min_noise = opts.tol_gp_noise
     i_n = cfg.ncov
-    noisesize = max(opts.noise_size or 0.0, opts.tol_gp_noise)
-    x0[i_n] = np.log(noisesize)
-    mu[i_n] = np.log(noisesize)
-    sigma[i_n] = 0.5
-    lb[i_n] = np.log(opts.tol_gp_noise)
+    if cfg.const_noise == 1:
+        if opts.uncertainty_level == 0:
+            noisesize = max(opts.noise_size or 0.0, min_noise)
+            noisestd = 0.5
+        elif opts.uncertainty_level == 1:
+            noisesize = min_noise
+            noisestd = np.log(10.0)
+        else:
+            noisesize = min_noise
+            noisestd = 0.5
+        x0[i_n] = np.log(noisesize)
+        mu[i_n] = np.log(noisesize)
+        sigma[i_n] = noisestd
+        lb[i_n] = np.log(min_noise)
+        i_n += 1
+    if cfg.user_noise == 2:
+        noisemult = max(opts.noise_size or 0.0, min_noise) \
+            if opts.noise_size else 1.0
+        noisemultstd = np.log(10.0) / 2 if opts.noise_size else np.log(10.0)
+        x0[i_n] = np.log(noisemult)
+        mu[i_n] = np.log(noisemult)
+        sigma[i_n] = noisemultstd
 
     # Mean (gptrain:182-203).
     minfo = mean_info(cfg, X_hpd, yh)
@@ -145,26 +162,27 @@ def hyp_sampler_for(cfg: GPConfig, sb: int) -> str:
     return "ensemble" if (cfg.nhyp > 20 and sb >= 8) else "slice"
 
 
-def _objective(cfg, prior, X, y, mask):
+def _objective(cfg, prior, X, y, s2, mask):
     def obj(h):
-        nll = (core.neg_log_marginal_likelihood(cfg, h, X, y, mask)
+        nll = (core.neg_log_marginal_likelihood(cfg, h, X, y, s2, mask)
                - core.hyperprior_logpdf(prior, h))
         return torch.where(torch.isfinite(nll), nll, 1e12)
     return obj
 
 
 def map_sample_assemble_core(cfg: GPConfig, gen: torch.Generator, x0s_map,
-                             eps, widths, prior: HypPrior, X, y, mask,
-                             ns: int, burn: int, thin: int, n_keep_max: int,
-                             maxiter: int, sampler: str = "slice"):
-    """MAP polish -> best start -> chain starts jittered around the MAP by
-    ``eps`` -> sampler -> padded sample buffer, with the log-posterior gate
-    that collapses samples > 50 nats below the best onto the MAP. (The
-    reference's warm chain starts serve the noisy path's quick updates,
-    slice 2.)
+                             eps_or_cs, widths, prior: HypPrior, X, y, s2,
+                             mask, ns: int, burn: int, thin: int,
+                             n_keep_max: int, warm: bool, maxiter: int,
+                             sampler: str = "slice"):
+    """MAP polish -> best start -> chain starts (jittered around the MAP by
+    ``eps_or_cs``, or with ``warm`` the rows of ``eps_or_cs`` themselves:
+    the previous posterior samples of a quick update) -> sampler -> padded
+    sample buffer, with the log-posterior gate that collapses samples > 50
+    nats below the best onto the MAP.
     Returns (buf (sb, nhyp), hyp_mask (sb,), hyp_map (nhyp,),
     gated samples (sb, nhyp))."""
-    obj = _objective(cfg, prior, X, y, mask)
+    obj = _objective(cfg, prior, X, y, s2, mask)
     if maxiter > 0:
         hyp_opt, f_opt = minimize_lbfgs_bounded(obj, x0s_map, prior.lb,
                                                 prior.ub, maxiter=maxiter)
@@ -177,13 +195,14 @@ def map_sample_assemble_core(cfg: GPConfig, gen: torch.Generator, x0s_map,
 
     # Chain starts scatter by the sampling widths (mode discovery on
     # unstable runs); stranded chains are caught by the gate below.
-    x0s_chain = hyp_map[None, :] + eps * (0.1 * widths)[None, :]
+    x0s_chain = eps_or_cs if warm else \
+        hyp_map[None, :] + eps_or_cs * (0.1 * widths)[None, :]
     x0s_chain = torch.minimum(torch.maximum(x0s_chain, prior.lb + 1e-10),
                               prior.ub - 1e-10)
     x0s_chain[0] = hyp_map
 
     def logpdf(h):
-        lp = core.gp_log_posterior(cfg, prior, h, X, y, mask)
+        lp = core.gp_log_posterior(cfg, prior, h, X, y, s2, mask)
         in_bounds = ((h >= prior.lb) & (h <= prior.ub)).all(-1)
         return torch.where(in_bounds & torch.isfinite(lp), lp, -torch.inf)
 
@@ -215,13 +234,9 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
              opts: TrainOptions, hyp0: Optional[np.ndarray] = None,
              host_seed: Optional[int] = None, *, device="cpu",
              dtype=torch.float64):
-    """Fit the GP surrogate on host training data (unpadded); returns
-    (GP, info dict). ``host_seed`` seeds the host draws (design points,
-    chain-start jitter)."""
-    if s2 is not None:
-        raise NotImplementedError("user-provided noise is ROADMAP Queue 1, "
-                                  "slice 2")
-
+    """Fit the GP surrogate on host training data (unpadded; ``s2`` the
+    user noise variance or None); returns (GP, info dict). ``host_seed``
+    seeds the host draws (design points, chain-start jitter)."""
     def t(v):
         return torch.as_tensor(np.asarray(v, np.float64), device=device,
                                dtype=dtype)
@@ -230,7 +245,8 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
     nb = bucket_n(n)
     Xp = t(pad_to(np.asarray(X, float), nb))
     yp = t(pad_to(np.asarray(y, float).ravel(), nb))
-    s2p = t(np.zeros(nb))
+    s2p = t(np.zeros(nb) if s2 is None
+            else pad_to(np.asarray(s2, float).ravel(), nb))
     mask = torch.as_tensor(np.arange(nb) < n, device=device)
 
     prior, x0_default = assemble_hyp_prior(cfg, np.asarray(X), np.asarray(y),
@@ -254,7 +270,7 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
     pub_np = np.where(np.isfinite(prior.pub.cpu().double().numpy()),
                       prior.pub.cpu().double().numpy(), ub_np)
     starts = np.clip(starts, lb_np + 1e-12, ub_np - 1e-12)
-    obj = _objective(cfg, prior, Xp, yp, mask)
+    obj = _objective(cfg, prior, Xp, yp, s2p, mask)
 
     widths_default = np.maximum(pub_np - plb_np, 1e-3)
     if opts.ninit > 0:
@@ -313,9 +329,9 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
         n_rows = sb if sampler == "ensemble" else C
         eps = hrng.standard_normal((n_rows, nh))
         buf, hyp_mask, hyp_map, flat = map_sample_assemble_core(
-            cfg, gen, t(x0s_map), t(eps), t(widths), prior, Xp, yp, mask,
-            ns, max(burn // C, opts.thin), opts.thin, keep_max, map_iters,
-            sampler=sampler)
+            cfg, gen, t(x0s_map), t(eps), t(widths), prior, Xp, yp, s2p,
+            mask, ns, max(burn // C, opts.thin), opts.thin, keep_max, False,
+            map_iters, sampler=sampler)
         gp = build_gp(cfg, Xp, yp, s2p, mask, buf, hyp_mask)
         hyp_map = hyp_map.cpu().double().numpy()
         hyp_full = flat.cpu().double().numpy()

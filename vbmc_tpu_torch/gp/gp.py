@@ -57,7 +57,7 @@ def build_gp(cfg: GPConfig, X, y, s2, mask, hyp_samples, hyp_mask) -> GP:
     """Posterior factorisations for all hyperparameter samples; masked
     samples are factorised too (dense buffers) and excluded from averages
     through ``hyp_mask``."""
-    alpha, L, Binv, sn2, _ = core.build_posterior(cfg, hyp_samples, X, y,
+    alpha, L, Binv, sn2, _ = core.build_posterior(cfg, hyp_samples, X, y, s2,
                                                   mask)
     return GP(X=X, y=y, s2=s2, mask=mask, hyp=hyp_samples, hyp_mask=hyp_mask,
               alpha=alpha, L=L, Binv=Binv, sn2=sn2)

@@ -1,5 +1,9 @@
-"""GP observation noise (cf. `vbmc_tpu/gp/noise.py`): the constant noise
-term of noiseless targets."""
+"""GP observation noise (cf. `vbmc_tpu/gp/noise.py`,
+`gplite/gplite_noisefun.m`): the total noise variance of each training
+point is the constant noise term plus the user-provided noise, taken as
+given (``user_noise`` 1) or rescaled by a hyperparameter (``user_noise``
+2). Output-dependent noise is not ported: the orchestrator never turns it
+on."""
 
 from __future__ import annotations
 
@@ -10,27 +14,53 @@ from vbmc_tpu_torch.gp.config import GPConfig
 
 
 def check_noise(cfg: GPConfig):
-    if cfg.const_noise != 1 or cfg.user_noise != 0 or cfg.output_noise != 0:
+    if cfg.output_noise != 0:
         raise NotImplementedError(
-            "only the constant GP noise of noiseless targets is ported; "
-            "user and output-dependent noise are ROADMAP Queue 1, slice 2")
+            "output-dependent GP noise is not ported (ROADMAP Queue 1, "
+            "slice 3)")
 
 
-def noise_variance(cfg: GPConfig, hyp_noise: torch.Tensor,
-                   n: int) -> torch.Tensor:
-    """Per-point noise variance (B, n) for hyp_noise (B, nnoise)."""
+def noise_variance(cfg: GPConfig, hyp_noise: torch.Tensor, n: int,
+                   s2=None) -> torch.Tensor:
+    """Per-point noise variance (B, n) for hyp_noise (B, nnoise) and the
+    user noise variance s2 (n,) (None counts as 0)."""
     check_noise(cfg)
-    return torch.exp(2.0 * hyp_noise[:, :1]).expand(-1, n)
+    B = hyp_noise.shape[0]
+    idx = 0
+    if cfg.const_noise == 1:
+        sn2 = torch.exp(2.0 * hyp_noise[:, :1]).expand(B, n)
+        idx += 1
+    else:
+        sn2 = torch.full((B, n), torch.finfo(hyp_noise.dtype).eps,
+                         dtype=hyp_noise.dtype, device=hyp_noise.device)
+    if s2 is not None and cfg.user_noise == 1:
+        sn2 = sn2 + s2[None, :]
+    elif s2 is not None and cfg.user_noise == 2:
+        sn2 = sn2 + torch.exp(hyp_noise[:, idx:idx + 1]) * s2[None, :]
+    return sn2
 
 
 def noise_info(cfg: GPConfig, y: np.ndarray):
     """Bounds / plausible box / x0 of the noise hyperparameters."""
     check_noise(cfg)
-    ToL = 1e-6
+    nn = cfg.nnoise
+    info = dict(lb=np.full(nn, -np.inf), ub=np.full(nn, np.inf),
+                plb=np.full(nn, -np.inf), pub=np.full(nn, np.inf),
+                x0=np.full(nn, np.nan))
     if y.size <= 1:
         y = np.array([0.0, 1.0])
     height = max(y.max() - y.min(), 1e-10)
-    return dict(lb=np.array([np.log(ToL)]), ub=np.array([np.log(height)]),
-                plb=np.array([0.5 * np.log(ToL)]),
-                pub=np.array([np.log(max(np.std(y, ddof=1), 1e-10))]),
-                x0=np.array([np.log(1e-3)]))
+    ToL = 1e-6
+    idx = 0
+    if cfg.const_noise == 1:
+        for k, v in dict(lb=np.log(ToL), ub=np.log(height),
+                         plb=0.5 * np.log(ToL),
+                         pub=np.log(max(np.std(y, ddof=1), 1e-10)),
+                         x0=np.log(1e-3)).items():
+            info[k][idx] = v
+        idx += 1
+    if cfg.user_noise == 2:
+        for k, v in dict(lb=np.log(1e-3), ub=np.log(1e3), plb=np.log(0.5),
+                         pub=np.log(2.0), x0=0.0).items():
+            info[k][idx] = v
+    return info

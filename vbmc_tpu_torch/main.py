@@ -1,10 +1,11 @@
-"""The VBMC orchestrator for noiseless targets (cf. `vbmc_tpu/main.py`,
-`vbmc.m:506-882`).
+"""The VBMC orchestrator (cf. `vbmc_tpu/main.py`, `vbmc.m:506-882`), for
+noiseless targets and for noisy ones that return their noise SD or leave it
+to the GP.
 
 Orchestration (state machine, warm-up, termination, warp-undo
-transactions) is host Python and reuses `vbmc_tpu.options` and
-`vbmc_tpu.state` by import; every numeric path runs in PyTorch on the
-device the caller names.
+transactions, the acquisition hedge) is host Python and reuses
+`vbmc_tpu.options`, `vbmc_tpu.state` and `vbmc_tpu.hedge` by import; every
+numeric path runs in PyTorch on the device the caller names.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from vbmc_tpu.options import VBMCOptions, ResolvedOptions
 from vbmc_tpu import state as st
+from vbmc_tpu.hedge import AcqHedge
 from vbmc_tpu_torch.transforms import (create_trinfo, direct_np, LOGIT,
                                        PROBIT, STUDENT4)
 from vbmc_tpu_torch.function_logger import FunctionLogger
@@ -33,6 +35,7 @@ from vbmc_tpu_torch.active_sample import (initial_design, active_sample,
                                           SearchBounds, gp_reupdate,
                                           check_search_options)
 from vbmc_tpu_torch.acquisitions import check_acq
+from vbmc_tpu_torch.quick_update import QuickUpdater
 from vbmc_tpu_torch.utils.math import bucket_k, bucket_n, mvn_kl, pad_to, \
     to_np, N_BUCKETS
 
@@ -61,6 +64,7 @@ class VBMCResult:
     overhead: float = float("nan")
     warps_made: int = 0        # rotoscale warps applied
     warps_undone: int = 0      # of which undone by the ELBO check
+    quick_updates: int = 0     # per-point full updates (noisy targets)
 
 
 def bounds_check(x0, lb, ub, plb, pub, D):
@@ -141,11 +145,6 @@ def _check_slice(opt: ResolvedOptions):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"Queue 1, {item})")
 
-    if opt.specify_target_noise or opt.uncertainty_handling:
-        no("noisy targets (specify_target_noise / uncertainty_handling)",
-           "slice 2")
-    if opt.noise_shaping:
-        no("noise_shaping", "slice 2")
     if opt.fitness_shaping:
         no("fitness_shaping (output warping)", "slice 3")
     if opt.gp_int_mean_fun > 0:
@@ -160,8 +159,6 @@ def _check_slice(opt: ResolvedOptions):
         no("retry_max_fun_evals > 0 (warm start from a VP)", "slice 4")
     if opt.fvals is not None:
         no("fvals (pre-evaluated starting points)", "slice 4")
-    if opt.active_sample_gp_update or opt.active_sample_vp_update:
-        no("active_sample_gp_update / active_sample_vp_update", "slice 2")
     if opt.gp_mean_fun not in _MEANFUN_IDS:
         no(f"gp_mean_fun={opt.gp_mean_fun!r}", "slice 3")
     if opt.bounded_transform not in _TRANSFORM_IDS:
@@ -174,8 +171,8 @@ def _check_slice(opt: ResolvedOptions):
 
 
 def _gp_train_options(state: st.OptimState, stats: st.Stats,
-                      options: ResolvedOptions,
-                      logger: FunctionLogger) -> TrainOptions:
+                      options: ResolvedOptions, logger: FunctionLogger,
+                      uncertainty_level: int) -> TrainOptions:
     """GP training policy per iteration (`misc/get_GPTrainOptions.m`, the
     Ns schedule of `gptrain_vbmc.m:314-343`)."""
     n = logger.n_train
@@ -234,7 +231,7 @@ def _gp_train_options(state: st.OptimState, stats: st.Stats,
                                                options.D),
         length_prior_std=options.gp_length_prior_std,
         quadratic_mean_bound=options.gp_quadratic_mean_bound,
-        tol_sd=options.tol_sd, uncertainty_level=0,
+        tol_sd=options.tol_sd, uncertainty_level=uncertainty_level,
         upper_length_factor=options.upper_gp_length_factor)
 
 
@@ -251,6 +248,15 @@ def _update_hyp_runcov(state: st.OptimState, hyp_full: np.ndarray,
     else:
         w = options.hyp_run_weight ** options.fun_evals_per_iter
         state.hyp_runcov = (1 - w) * hypcov + w * state.hyp_runcov
+
+
+def _noise_shaping(s2, y, options):
+    """Add artificial noise to low-density observations
+    (`misc/noiseshaping_vbmc.m`)."""
+    if s2 is None:
+        s2 = np.full(y.shape, options.tol_gp_noise ** 2)
+    ydelta = np.maximum(0.0, np.max(y) - y - options.noise_shaping_threshold)
+    return s2 + (options.noise_shaping_factor * ydelta) ** 2
 
 
 def _estimate_sn2hpd(gp, logger, sn2: np.ndarray) -> float:
@@ -332,7 +338,8 @@ def _collect_hyp_starts(stats: st.Stats, hyp_warm, ninit: int):
 def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
          options: Optional[VBMCOptions] = None, *, device,
          dtype=torch.float64) -> VBMCResult:
-    """Run VBMC on a black-box noiseless log joint ``fun``: the same call as
+    """Run VBMC on a black-box log joint ``fun`` (with
+    ``specify_target_noise`` it returns (value, noise SD)): the same call as
     `vbmc_tpu.vbmc`, plus the device and dtype every tensor lives in.
     Randomness is one `torch.Generator` on that device seeded from
     ``options.seed``."""
@@ -367,11 +374,19 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     lb_t = direct_np(trinfo, lb[None, :])[0]
     ub_t = direct_np(trinfo, ub[None, :])[0]
 
-    logger = FunctionLogger(fun, D, trinfo, uncertainty_level=0,
+    uncertainty_level = (2 if opt.specify_target_noise
+                         else (1 if opt.uncertainty_handling else 0))
+    logger = FunctionLogger(fun, D, trinfo,
+                            uncertainty_level=uncertainty_level,
                             cache_size=opt.cache_size,
                             temperature=opt.temperature)
+    user_noise = {0: 0, 1: 2, 2: 1}[uncertainty_level]
+    if opt.noise_shaping:
+        user_noise = max(user_noise, 1)
     cfg = GPConfig(D=D, meanfun=_MEANFUN_IDS[opt.gp_mean_fun], const_noise=1,
-                   user_noise=0, output_noise=0, intmean=0, outwarp=0)
+                   user_noise=user_noise, output_noise=0, intmean=0,
+                   outwarp=0)
+    shaping = _noise_shaping if opt.noise_shaping else None
 
     gen = torch.Generator(device=device)
     gen.manual_seed(opt.seed)
@@ -393,9 +408,10 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
 
     gp = None
     hyp_warm = None
-    # Only "prospective" is ported (`_check_slice`), so the acquisition
-    # hedge of the reference never has a choice to make.
     acq_names = tuple(_canonical_acq(a) for a in opt.search_acq_fcn)
+    hedge = None
+    if opt.acq_hedge and len(acq_names) > 1:
+        hedge = AcqHedge(names=list(acq_names), decay=opt.acq_hedge_decay)
     timers = dict(active_sampling=0.0, gp_train=0.0, variational_fit=0.0,
                   finalize=0.0, warping=0.0)
     timers_prev = dict(timers)
@@ -405,10 +421,12 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     elbo = elbo_sd = float("nan")
     display = opt.display in ("iter",)
     warps = dict(made=0, undone=0)
+    quick_updates = 0
 
     if display:
-        print("Beginning variational optimization assuming EXACT "
-              "observations of the log-joint.")
+        mode = "NOISY" if uncertainty_level else "EXACT"
+        print(f"Beginning variational optimization assuming {mode} "
+              f"observations of the log-joint.")
         print(" Iteration  f-count     Mean[ELBO]     Std[ELBO]     "
               "sKL-iter[q]   K[q]  Convergence  Action")
 
@@ -477,9 +495,11 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
             if opt.warp_undo_check:
                 # Retrain and refit in the warped space; undo if the ELBO
                 # regresses (vbmc.m:566-624).
-                topts = _gp_train_options(state, stats, opt, logger)
-                X_tr, y_tr, _ = logger.training_data()
-                gp, gpinfo_w = train_gp(gen, cfg, X_tr, y_tr, None, plb_t,
+                topts = _gp_train_options(state, stats, opt, logger,
+                                          uncertainty_level)
+                X_tr, y_tr, s2_tr = logger.training_data(
+                    noise_shaping=shaping, options=opt)
+                gp, gpinfo_w = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t,
                                         pub_t, topts, hyp0=hyp_warped,
                                         host_seed=int(rng.integers(2 ** 31 - 1)),
                                         device=device, dtype=dtype)
@@ -526,19 +546,47 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                            x0_cache=direct_np(trinfo, x0),
                            init_design=opt.init_design)
         else:
-            acq_name = acq_names[int(rng.integers(len(acq_names)))]
-            gp = active_sample(gen, cfg, logger, opt.fun_evals_per_iter, vp,
-                               gp, sb, opt, acq_name=acq_name,
-                               tol_gp_var=opt.tol_gp_var)
+            if hedge is not None:
+                acq_name = hedge.choose(rng)
+            else:
+                acq_name = acq_names[int(rng.integers(len(acq_names)))]
+            # Full per-point updates near the end of warm-up or on unstable
+            # runs (noisy-target default, `activesample_vbmc.m:46-76`).
+            rindex_prev = stats.last.rindex if len(stats) else math.inf
+            full_update = (
+                (opt.active_sample_gp_update or opt.active_sample_vp_update)
+                and ((it - opt.active_sample_full_update_past_warmup)
+                     <= state.last_warmup
+                     or rindex_prev > opt.active_sample_full_update_threshold))
+            quick_updater = None
+            if full_update:
+                quick_updater = QuickUpdater(
+                    cfg, opt, _gp_train_options(state, stats, opt, logger,
+                                                uncertainty_level),
+                    plb_t, pub_t, warmup=state.warmup,
+                    entropy_switch=state.entropy_switch, K=state.vp_K,
+                    do_gp=bool(opt.active_sample_gp_update),
+                    do_vp=bool(opt.active_sample_vp_update),
+                    noise_shaping=shaping)
+            gp, vp = active_sample(gen, cfg, logger, opt.fun_evals_per_iter,
+                                   vp, gp, sb, opt, acq_name=acq_name,
+                                   tol_gp_var=opt.tol_gp_var,
+                                   full_update=full_update,
+                                   quick_updater=quick_updater,
+                                   fess_thresh=opt.active_sample_fess_thresh)
+            if quick_updater is not None:
+                quick_updates += quick_updater.updates
         timers["active_sampling"] += time.monotonic() - t
 
         # ------------------------------------------------------ GP training
         t = time.monotonic()
-        topts = _gp_train_options(state, stats, opt, logger)
-        X_tr, y_tr, _ = logger.training_data()
+        topts = _gp_train_options(state, stats, opt, logger,
+                                  uncertainty_level)
+        X_tr, y_tr, s2_tr = logger.training_data(noise_shaping=shaping,
+                                                 options=opt)
         hyp0 = _collect_hyp_starts(stats, hyp_warm, topts.ninit)
-        gp, gpinfo = train_gp(gen, cfg, X_tr, y_tr, None, plb_t, pub_t, topts,
-                              hyp0=hyp0,
+        gp, gpinfo = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t,
+                              topts, hyp0=hyp0,
                               host_seed=int(rng.integers(2 ** 31 - 1)),
                               device=device, dtype=dtype)
         hyp_warm = gpinfo["hyp_full"]
@@ -625,6 +673,14 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                 state.hyp_runcov = None
         stats.last.warmup = state.warmup
 
+        # Hedge reward: ELCBO improvement over the previous iteration
+        # (`vbmc.m:848-850`, `acqhedge_vbmc.m:28-56`).
+        if hedge is not None and it > 1:
+            prev = stats.iterations[-2]
+            impro = ((elbo - opt.elcbo_impro_weight * elbo_sd)
+                     - (prev.elbo - opt.elcbo_impro_weight * prev.elbo_sd))
+            hedge.update(impro, opt.fun_evals_per_iter)
+
         if opt.output_fcn is not None:
             stop_req = opt.output_fcn(dict(
                 iteration=it, elbo=elbo, elbo_sd=elbo_sd, sKL=sKL,
@@ -689,4 +745,5 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         vp_train=vp_train, func_count=logger.func_count,
         iterations=len(stats), convergence_status=convergence,
         idx_best=idx_best, timers=timers, overhead=overhead,
-        warps_made=warps["made"], warps_undone=warps["undone"])
+        warps_made=warps["made"], warps_undone=warps["undone"],
+        quick_updates=quick_updates)
