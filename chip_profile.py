@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_profile.py [--target mvn_6d|halfnorm2_noisy] [--evals N]
+    python3 chip_profile.py --kernel-phases
 
 It builds the sweep kernels, then runs `vbmc_tpu_torch.vbmc` on one target
 of `chip_smoke.py` twice in one process: once plainly, then under
@@ -17,6 +18,13 @@ two runs, since the profiler slows the host but not the device), with the
 five names that took the most device time. Device time is read from the raw
 kineto events: a run makes millions of them, too many for
 `key_averages()` to finish in minutes.
+
+With `--kernel-phases` it profiles the two sweep kernels instead: it builds
+them with `-DVBMC_PROFILE`, launches each at the
+shapes of `chip_smoke.py` (N=128 like the main paths' last GPs, N=256,
+N=512, N=1024) and prints, per launch, the cycles each phase of pass 1 took
+summed over blocks, as shares, beside the launch's time by CUDA events (the
+marks cost a few percent). The phases are those of `csrc/gp_tile.cuh`.
 """
 
 from __future__ import annotations
@@ -85,6 +93,48 @@ def busy_union_s(intervals):
     return total / 1e9
 
 
+# (N, S, K, M, D): like the noiseless and the noisy main path's last GPs,
+# then the mid, an upper and the top bucket.
+PHASE_SHAPES = ((128, 16, 8, 8192, 6), (128, 8, 8, 8192, 2),
+                (256, 16, 16, 8192, 6), (512, 16, 16, 8192, 6),
+                (1024, 80, 64, 8192, 10))
+
+
+def kernel_phases(torch, smi):
+    """Both kernels, built with the cycle marks, at PHASE_SHAPES in
+    float64: one JSON line per launch."""
+    import chip_smoke as cs
+    from vbmc_tpu_torch import kernels
+
+    kernels.build_all(profile=True)
+    for (N, S, K, M, D) in PHASE_SHAPES:
+        cfg, gp, vp, Xs, ymax, tol = cs.make_case(torch, N, S, K, M, D)
+        calls = [(kernels.prospective_acq, lambda: kernels.prospective_acq(
+            cfg, Xs, gp, vp, ymax, tol, True))]
+        cfg_n, gp_n, vp_n, Xs_n, _, _ = cs.make_case(torch, N, S, K, M, D,
+                                                     noisy=True)
+        ais, sn2c = cs.viqr_inputs(torch, cfg_n, gp_n, vp_n, Xs_n)
+        calls.append((kernels.viqr_acq, lambda: kernels.viqr_acq(
+            cfg_n, Xs_n, gp_n, ais, sn2c, tol, True)))
+        for kern, call in calls:
+            kern.load(profile=True)
+            ms = cs.cuda_time_ms(torch, call)
+            kern.read_phases(reset=True)
+            call()
+            cycles = kern.read_phases(reset=True)
+            total = sum(cycles.values())
+            print(json.dumps({
+                "device": smi, "kernel": kern.name,
+                "shape": dict(N=N, S=S, K=K, M=M, D=D,
+                              Na=ais.Xa.shape[0]),
+                "ms": ms, "block_cycles_total": total,
+                "share": {k: round(v / total, 4)
+                          for k, v in cycles.items()}}), flush=True)
+        del gp, vp, Xs, gp_n, vp_n, Xs_n, ais, sn2c, calls
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--target", choices=("mvn_6d", "halfnorm2_noisy"),
@@ -92,6 +142,9 @@ def main():
     ap.add_argument("--evals", type=int, default=35,
                     help="max_fun_evals of each run (default 35; the options "
                          "raise it to min_fun_evals, 35 at D=6)")
+    ap.add_argument("--kernel-phases", action="store_true",
+                    help="profile the phases of the two sweep kernels "
+                         "instead of a run")
     args = ap.parse_args()
 
     import torch
@@ -108,6 +161,8 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    if args.kernel_phases:
+        return kernel_phases(torch, smi)
     from vbmc_tpu_torch import kernels
     kernels.build_all()
     kernels.prospective_acq.load()

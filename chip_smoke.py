@@ -10,14 +10,33 @@ Phases, each printing what it found; any failure exits non-zero:
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi). Exits 2 without CUDA: there is no CPU fallback.
 2. Build: compile both kernel sources (`vbmc_tpu_torch/csrc/*.cu`) with
-   nvcc, one process each, started together.
+   nvcc, one process each, started together; the float64 products must
+   show as DMMA (FP64 tensor-core) opcodes in `cuobjdump -sass`.
 3. Each kernel against its plain PyTorch version on the card, float64 and
    float32, with CUDA-event times of both:
    - `prospective_acq` at N=256 S=16 K=16 M=8192 D=6 and N=1024 S=80 K=64
      M=8192 D=10, with Binv from a real GP factorisation;
    - `viqr_acq` at N=256 S=16 K=16 M=8192 D=6 and N=1024 S=80 K=64 M=8192
      D=10, with a real GP with user noise and a real importance-sampling
-     set (Na = 298 at the default option values).
+     set (Na = 298 at the default option values);
+   - the edges, float64: 150 valid training points in the 192 rung, 5 valid
+     samples of 8, M=8191, at D=1 and D=20, and for VIQR Na=273 (odd, no
+     multiple of the kernel's tile) with a tenth of the weights at -inf;
+   - both kernels at N=512 in float64 (the 32-candidate plan; the shapes
+     above take the two 64-candidate plans and the 16-candidate one);
+   - `viqr_acq` on a GP with an output scale of 3e4, float64 and float32:
+     predictive SDs at the integration points above 1100, where 2 sinh of
+     u SD overflows either type and only a log-domain fold holds.
+   Beside each float64 time stand the bound (the product flops of the valid
+   samples and training points over 67 TFLOP/s, the H100's FP64 tensor-core
+   peak, or every input and output byte once over 3.35 TB/s if that is
+   larger) and a yardstick, `library_ms`: the products alone (Binv ks, and
+   for VIQR also invKzk^T ks) through `torch.bmm`, which is cuBLAS DGEMM.
+   That is the products' time only, not the function's, and the port never
+   calls it. Also the exp and expm1 evaluations of the launch's pass 1,
+   counted over the whole tiles it evaluates (masked training rows and the
+   candidates a ragged M rounds up to included), and, in the log lines
+   only, the time of the design before this one at the same shape.
 4. The noiseless path: `vbmc(..., device="cuda", dtype=torch.float64)` on a
    6-D Gaussian (ensemble hyperparameter sampler) and a correlated 3-D cigar
    (rotoscale warping), each held to |ELBO - lnZ| < 0.5 and posterior-mean
@@ -58,6 +77,19 @@ F64_TOL = {"prospective_acq": (1e-6, 1e-12), "viqr_acq": (1e-6, 1e-9)}
 # PyTorch's own float32 plain version (plus 1e-6 of max |acq|).
 F32_VS_PLAIN = 2.0
 NA_DEFAULT = 3 * 66 + 100   # IS set size at the default option values
+# The card's peaks (NVIDIA's H100 SXM data sheet): FP64 on the tensor cores,
+# and device memory.
+PEAK_FP64_TC = 67e12
+PEAK_BYTES = 3.35e12
+# Float64 kernel ms of the design before this one (FP64 FMA micro-tile, ks
+# recomputed per 64-row tile, single-buffered loads), H100 80GB HBM3 at
+# 700 W: PERF.md section 6, "earlier" column. Keys: kernel, then (N, S) of
+# the two shapes both designs were timed at. Printed beside the new time in
+# the log; no part of the JSON line, which holds this run's numbers only.
+PREV_MS = {
+    "prospective_acq": {(256, 16): 2.601, (1024, 80): 205.2},
+    "viqr_acq": {(256, 16): 6.435, (1024, 80): 275.1},
+}
 
 
 def log(msg: str):
@@ -80,10 +112,10 @@ def phase_env(torch):
     return smi
 
 
-def _hyps(cfg, rng, S, D):
+def _hyps(cfg, rng, S, D, log_sf=0.0):
     hyps = np.zeros((S, cfg.nhyp))
     hyps[:, :D] = np.log(0.8 * np.sqrt(D)) + 0.05 * rng.standard_normal((S, D))
-    hyps[:, D] = 0.1 * rng.standard_normal(S)
+    hyps[:, D] = log_sf + 0.1 * rng.standard_normal(S)
     hyps[:, cfg.ncov] = np.log(0.05)
     i_m = cfg.ncov + cfg.nnoise
     hyps[:, i_m] = 0.3
@@ -91,10 +123,13 @@ def _hyps(cfg, rng, S, D):
     return hyps
 
 
-def make_case(torch, N, S, K, M, D, seed=0, noisy=False):
+def make_case(torch, N, S, K, M, D, seed=0, noisy=False, n_valid=None,
+              s_valid=None, log_sf=0.0):
     """Kernel inputs from a numpy seed: a real build_gp (with user noise
     variances of about 1 when ``noisy``), a K-component VP and M
-    candidates."""
+    candidates. ``n_valid`` training points fill the N slots and
+    ``s_valid`` samples the S slots (default: all), the rest masked;
+    ``log_sf`` is the mean log output scale of the GP's samples."""
     from vbmc_tpu_torch.gp.config import GPConfig
     from vbmc_tpu_torch.gp.gp import gp_from_host
     from vbmc_tpu_torch.transforms import create_trinfo
@@ -102,14 +137,18 @@ def make_case(torch, N, S, K, M, D, seed=0, noisy=False):
 
     rng = np.random.default_rng(seed)
     cfg = GPConfig(D=D, user_noise=1 if noisy else 0)
-    X = rng.uniform(-2, 2, (N, D))
+    n = N if n_valid is None else n_valid
+    X = rng.uniform(-2, 2, (n, D))
     y = -0.5 * np.sum(X ** 2, 1)
     s2 = None
     if noisy:
-        y = y + rng.standard_normal(N)
-        s2 = rng.uniform(0.8, 1.2, N)
-    gp = gp_from_host(cfg, X, y, s2, _hyps(cfg, rng, S, D), n_bucket=N,
-                      s_bucket=S, device="cuda", dtype=torch.float64)
+        y = y + rng.standard_normal(n)
+        s2 = rng.uniform(0.8, 1.2, n)
+    gp = gp_from_host(cfg, X, y, s2,
+                      _hyps(cfg, rng, S if s_valid is None else s_valid, D,
+                            log_sf),
+                      n_bucket=N, s_bucket=S, device="cuda",
+                      dtype=torch.float64)
     trinfo = create_trinfo([-np.inf] * D, [np.inf] * D, [-2.0] * D,
                            [2.0] * D, device="cuda", dtype=torch.float64)
     w = rng.random(K) + 0.3
@@ -119,17 +158,25 @@ def make_case(torch, N, S, K, M, D, seed=0, noisy=False):
     return cfg, gp, vp, Xs, 0.7, 1e-4
 
 
-def viqr_inputs(torch, cfg, gp, vp, Xs, seed=0):
-    """A real importance-sampling set at the default option values and the
-    nearest-noise estimate at Xs: the inputs `sweep_is_acquisition` gives
-    the kernel."""
+def viqr_inputs(torch, cfg, gp, vp, Xs, seed=0, n_box=100, drop=0.0):
+    """A real importance-sampling set (at the default option values: 298
+    points) and the nearest-noise estimate at Xs: the inputs
+    `sweep_is_acquisition` gives the kernel. ``drop``: the share of the
+    log weights set to -inf, as padded or zero-weight points carry."""
+    import dataclasses
+
     from vbmc_tpu_torch.acquisitions import AcqState, _nearest_noise
     from vbmc_tpu_torch.active_is import build_is_state_core
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.no_grad():
-        ais = build_is_state_core(gen, cfg, "viqr", vp, gp, 100, 100, 100,
+        ais = build_is_state_core(gen, cfg, "viqr", vp, gp, 100, n_box, 100,
                                   mh_steps=3, fess_thresh=0.9)
+        if drop:
+            gone = torch.rand(ais.ln_weights.shape, generator=gen,
+                              device="cuda") < drop
+            ais = dataclasses.replace(ais, ln_weights=torch.where(
+                gone, -np.inf, ais.ln_weights).contiguous())
         hm = gp.hyp_mask.to(gp.hyp.dtype)
         gls = torch.exp((gp.hyp[:, :cfg.D] * hm[:, None]).sum(0) / hm.sum())
         dev = torch.full((cfg.D,), np.inf, device="cuda", dtype=Xs.dtype)
@@ -174,11 +221,19 @@ def cuda_time_ms(torch, fn, repeats=7, inner=3):
     return statistics.median(times)
 
 
-def compare(torch, name, tag, kernel, plain, gflop, truth=None):
+def compare(torch, name, tag, kernel, plain, work, truth=None):
     """A kernel (``kernel()`` calls its wrapper) against its plain version
     (``plain()``) on the same inputs; asserts the tolerance and returns the
     numbers. ``truth``: the float64 plain result on the same inputs, for a
-    float32 case. ``gflop``: the kernel's product work."""
+    float32 case. ``work``: the product flops and the bytes these inputs
+    need, the exp evaluations of one launch, ``library()`` (the products
+    alone through torch.bmm) and ``prev_ms`` (the earlier design's time at
+    this shape, or None; logged only)."""
+    gflop = work["flops"] / 1e9
+    bound_ops = work["flops"] / PEAK_FP64_TC * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    bound_by = "operations" if bound_ops >= bound_bytes else "bytes"
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
@@ -202,79 +257,194 @@ def compare(torch, name, tag, kernel, plain, gflop, truth=None):
         ok = err_k <= F32_VS_PLAIN * err_p + 1e-6 * float(truth.abs().max())
         rule = (f"vs float64 truth: kernel {err_k:.3e} <= {F32_VS_PLAIN} x "
                 f"plain {err_p:.3e} + 1e-6 max|acq|")
-    ms = cuda_time_ms(torch, kernel)
-    plain_ms = cuda_time_ms(torch, plain, repeats=5, inner=1)
     log(f"[kernel] {name} {tag}: max_abs_err {max_abs:.3e} max_rel_err "
         f"{max_rel:.3e} max|acq| {scale:.3e} argmin_equal {same_argmin} "
-        f"({rule}): {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms "
-        f"({gflop / ms:.1f} TFLOP/s on {gflop:.2f} GFLOP), plain "
-        f"{plain_ms:.3f} ms")
+        f"({rule}): {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {tag}: kernel disagrees with plain "
                              f"version")
+    ms = cuda_time_ms(torch, kernel)
+    plain_ms = cuda_time_ms(torch, plain, repeats=5, inner=1)
+    library_ms = cuda_time_ms(torch, work["library"], repeats=5, inner=1)
+    log(f"[kernel] {name} {tag}: kernel {ms:.3f} ms ({gflop / ms:.1f} "
+        f"TFLOP/s on {gflop:.2f} GFLOP; bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {100 * bound_ms / ms:.1f}% of it reached), plain "
+        f"{plain_ms:.3f} ms, products alone by torch.bmm {library_ms:.3f} "
+        f"ms, earlier design {work['prev_ms']} ms, exp evaluations "
+        f"{work['exp_evals']}")
     return dict(tag=tag, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                plain_ms=plain_ms, argmin_equal=same_argmin, ref=ref)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms,
+                exp_evals=work["exp_evals"], gflop=gflop,
+                argmin_equal=same_argmin, ref=ref)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _valid(gp):
+    """Valid hyperparameter samples and training points of a GP."""
+    return int(gp.hyp_mask.sum()), int(gp.mask.sum())
+
+
+def _tile_work(kernel, gp, Xs):
+    """(sample, candidate) pairs that pass 1 of ``kernel`` evaluates (the
+    valid samples times M rounded up to the candidate tile of the plan taken
+    at this N) and the training slots it evaluates ks at for each (the whole
+    bucket: masked rows are computed and discarded)."""
+    M, D = Xs.shape
+    N = gp.X.shape[0]
+    mt = kernel.tile_width(N, D, Xs.dtype)
+    return int(gp.hyp_mask.sum()) * -(-M // mt) * mt, N
+
+
+def _prev_ms(name, gp, dtype):
+    if str(dtype) != "torch.float64":
+        return None
+    return PREV_MS[name].get((gp.X.shape[0], gp.hyp.shape[0]))
 
 
 def compare_prospective(torch, kernels, tag, cfg, gp, vp, Xs, ymax, tol_var,
                         truth=None):
-    N, S = gp.X.shape[0], gp.hyp.shape[0]
+    M = Xs.shape[0]
+    S, N = _valid(gp)
+    pairs, slots = _tile_work(kernels.prospective_acq, gp, Xs)
+    ks = torch.randn((gp.hyp.shape[0], gp.X.shape[0], M), device=Xs.device,
+                     dtype=Xs.dtype)
+    work = dict(
+        flops=2.0 * S * M * N * N,
+        bytes=_nbytes(Xs, gp.X, gp.hyp, gp.alpha, gp.Binv, vp.mu, vp.sigma,
+                      vp.lam, vp.w) + M * Xs.element_size(),
+        # ks once per (sample, candidate, training slot); pass 2 adds at
+        # most K + 2 per candidate.
+        exp_evals=pairs * slots,
+        prev_ms=_prev_ms("prospective_acq", gp, Xs.dtype),
+        library=lambda: torch.bmm(gp.Binv, ks))
     return compare(
         torch, "prospective_acq", tag,
         lambda: kernels.prospective_acq(cfg, Xs, gp, vp, ymax, tol_var, True),
         lambda: kernels.prospective_acq_reference(cfg, Xs, gp, vp, ymax,
                                                   tol_var, True),
-        2.0 * S * Xs.shape[0] * N * N / 1e9, truth)
+        work, truth)
 
 
 def compare_viqr(torch, kernels, tag, cfg, gp, ais, sn2c, Xs, tol_var,
                  truth=None):
-    N, S = gp.X.shape[0], gp.hyp.shape[0]
+    M = Xs.shape[0]
+    S, N = _valid(gp)
     Na = ais.Xa.shape[0]
+    pairs, slots = _tile_work(kernels.viqr_acq, gp, Xs)
+    # Integration points with a finite weight, over the valid samples (the
+    # kernel skips the others).
+    finite = int(torch.isfinite(ais.ln_weights[gp.hyp_mask]).sum())
+    ks = torch.randn((gp.hyp.shape[0], gp.X.shape[0], M), device=Xs.device,
+                     dtype=Xs.dtype)
+    invKzk_t = ais.invKzk.transpose(1, 2)
+
+    def library():
+        torch.bmm(gp.Binv, ks)
+        torch.bmm(invKzk_t, ks)
+
+    work = dict(
+        flops=2.0 * S * M * N * (N + Na),
+        bytes=_nbytes(Xs, gp.X, gp.hyp, gp.alpha, gp.Binv, ais.Xa,
+                      ais.ln_weights, ais.f_s2, ais.invKzk, sn2c)
+        + M * Xs.element_size(),
+        # ks as above; per (sample, candidate, weighted integration point)
+        # the exp of k(C, Xa), the epilogue's expm1 and its one exp.
+        exp_evals=pairs * slots + 3 * (pairs // S) * finite,
+        prev_ms=_prev_ms("viqr_acq", gp, Xs.dtype),
+        library=library)
     return compare(
         torch, "viqr_acq", tag,
         lambda: kernels.viqr_acq(cfg, Xs, gp, ais, sn2c, tol_var, True),
         lambda: kernels.viqr_acq_reference(cfg, Xs, gp, ais, sn2c, tol_var,
                                            True),
-        2.0 * S * Xs.shape[0] * N * (N + Na) / 1e9, truth)
+        work, truth)
+
+
+# (N, S, K, M, D) of the comparisons of phase 3: the mid and the top bucket.
+SHAPES = ((256, 16, 16, 8192, 6), (1024, 80, 64, 8192, 10))
+# The edges: 150 valid points in the 192 rung, 5 valid samples of 8, a
+# ragged M, the narrowest and the widest D; VIQR adds an odd Na (198 VP
+# draws + 75 box draws = 273) with a tenth of its weights at -inf.
+EDGES = (dict(N=192, S=8, K=8, M=8191, D=1, n_valid=150, s_valid=5),
+         dict(N=192, S=8, K=8, M=8191, D=20, n_valid=150, s_valid=5))
+EDGE_N_BOX, EDGE_DROP = 75, 0.1
+# The 32-candidate plan (float64: N from 288 to 512), which SHAPES and EDGES
+# do not reach.
+MID = dict(N=512, S=16, K=16, M=8192, D=6)
+# VIQR on a GP with an output scale of 3e4 (at D=6 the 128 training points
+# leave most of that at the integration points): the largest predictive SD
+# at the integration points must exceed WIDE_MIN_SD, beyond which
+# 2 sinh(u SD) overflows float64 (float32 from an SD of 131).
+WIDE = dict(N=128, S=8, K=8, M=8192, D=6, log_sf=float(np.log(3e4)))
+WIDE_MIN_SD = 1100.0
 
 
 def phase_kernels(torch, kernels):
-    """Both kernels against their plain versions at two shapes each, in
-    float64 and float32. Returns {kernel name: [results]}."""
+    """Both kernels against their plain versions: at two shapes each in
+    float64 and float32, at the edges and at N=512 in float64, and VIQR at a
+    large output scale in both types. Returns {kernel name: [results]}."""
     out = {"prospective_acq": [], "viqr_acq": []}
-    for (N, S, K, M, D) in ((256, 16, 16, 8192, 6), (1024, 80, 64, 8192, 10)):
-        shape = f"N={N} S={S} K={K} M={M} D={D}"
-        cfg, gp, vp, Xs, ymax, tol_var = make_case(torch, N, S, K, M, D)
+
+    def shape_of(tag, case, gp):
+        S, N = _valid(gp)
+        return (f"{tag}N={case['N']} S={case['S']} K={case['K']} "
+                f"M={case['M']} D={case['D']} valid N={N} S={S}")
+
+    def prospective(tag, case, float32):
+        cfg, gp, vp, Xs, ymax, tol_var = make_case(torch, **case)
+        shape = shape_of(tag, case, gp)
         r64 = compare_prospective(torch, kernels, f"{shape} float64", cfg, gp,
                                   vp, Xs, ymax, tol_var)
-        r32 = compare_prospective(
-            torch, kernels, f"{shape} float32", cfg,
-            cast_tree(torch, gp, torch.float32),
-            cast_tree(torch, vp, torch.float32), Xs.float(), ymax, tol_var,
-            truth=r64["ref"])
-        out["prospective_acq"] += [r64, r32]
-        del gp, vp, Xs
+        out["prospective_acq"].append(r64)
+        if float32:
+            out["prospective_acq"].append(compare_prospective(
+                torch, kernels, f"{shape} float32", cfg,
+                cast_tree(torch, gp, torch.float32),
+                cast_tree(torch, vp, torch.float32), Xs.float(), ymax,
+                tol_var, truth=r64["ref"]))
+        del gp, vp, Xs, r64
         for r in out["prospective_acq"]:
             r.pop("ref", None)
         torch.cuda.empty_cache()
 
-        cfg, gp, vp, Xs, _, tol_var = make_case(torch, N, S, K, M, D,
-                                                noisy=True)
-        ais, sn2c = viqr_inputs(torch, cfg, gp, vp, Xs)
-        shape = f"N={N} S={S} K={K} M={M} D={D} Na={ais.Xa.shape[0]}"
+    def viqr(tag, case, float32, min_sd=None, **viqr_kw):
+        cfg, gp, vp, Xs, _, tol_var = make_case(torch, noisy=True, **case)
+        ais, sn2c = viqr_inputs(torch, cfg, gp, vp, Xs, **viqr_kw)
+        n_inf = int(torch.isinf(ais.ln_weights).sum())
+        sd = float(ais.f_s2[gp.hyp_mask].max().sqrt())
+        shape = (f"{shape_of(tag, case, gp)} Na={ais.Xa.shape[0]} weights at "
+                 f"-inf {n_inf} max SD at Xa {sd:.4g}")
+        if min_sd is not None and not sd > min_sd:
+            raise AssertionError(f"viqr_acq {shape}: the case does not reach "
+                                 f"an SD of {min_sd}")
         r64 = compare_viqr(torch, kernels, f"{shape} float64", cfg, gp, ais,
                            sn2c, Xs, tol_var)
-        r32 = compare_viqr(
-            torch, kernels, f"{shape} float32", cfg,
-            cast_tree(torch, gp, torch.float32),
-            cast_tree(torch, ais, torch.float32), sn2c.float(), Xs.float(),
-            tol_var, truth=r64["ref"])
-        out["viqr_acq"] += [r64, r32]
-        del gp, vp, Xs, ais, sn2c
+        out["viqr_acq"].append(r64)
+        if float32:
+            out["viqr_acq"].append(compare_viqr(
+                torch, kernels, f"{shape} float32", cfg,
+                cast_tree(torch, gp, torch.float32),
+                cast_tree(torch, ais, torch.float32), sn2c.float(),
+                Xs.float(), tol_var, truth=r64["ref"]))
+        del gp, vp, Xs, ais, sn2c, r64
         for r in out["viqr_acq"]:
             r.pop("ref", None)
         torch.cuda.empty_cache()
+
+    for (N, S, K, M, D) in SHAPES:
+        case = dict(N=N, S=S, K=K, M=M, D=D)
+        prospective("", case, float32=True)
+        viqr("", case, float32=True)
+    for case in EDGES:
+        prospective("edges ", case, float32=False)
+        viqr("edges ", case, float32=False, n_box=EDGE_N_BOX, drop=EDGE_DROP)
+    prospective("mid ", MID, float32=False)
+    viqr("mid ", MID, float32=False)
+    viqr("wide ", WIDE, float32=True, min_sd=WIDE_MIN_SD)
     return out
 
 
@@ -416,9 +586,51 @@ def phase_noisy(torch, kernels, seed=1):
     return launches, r
 
 
+def check_dmma(libs):
+    """The float64 products of both libraries must have compiled to DMMA
+    (FP64 tensor-core) opcodes: count them in the SASS."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name, lib in libs.items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        dmma = [ln.strip() for ln in sass.splitlines() if "DMMA" in ln]
+        log(f"[build] {name}: {len(dmma)} DMMA opcodes in the SASS"
+            + (f", e.g. `{' '.join(dmma[0].split())}`" if dmma else ""))
+        if not dmma:
+            raise AssertionError(f"{name}: no DMMA opcode in the SASS; "
+                                 "the float64 products are not on the "
+                                 "tensor cores")
+
+
+def kernels_line(results, main_path, launches):
+    """The JSON line of every kernel's numbers: the headline numbers are
+    those at the main path's shape, `all` has every shape."""
+    replaces = {"prospective_acq": "vbmc_tpu/pallas_kernels.py:157",
+                "viqr_acq": "vbmc_tpu/pallas_kernels.py:337"}
+    head = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "exp_evals")
+    return json.dumps({"kernels": [{
+        "name": name, "route": "cuda",
+        "source": f"vbmc_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in results[name] + [main_path[name]]
+                           if "float64" in r["tag"]),
+        **{k: main_path[name][k] for k in head},
+        "timed_at": main_path[name]["tag"],
+        "all": results[name] + [main_path[name]]}
+        for name in ("prospective_acq", "viqr_acq")]})
+
+
 def main():
     import torch
 
+    if sys.argv[1:]:
+        print(f"usage: {sys.argv[0]} (no arguments)", file=sys.stderr)
+        return 2
     smi = phase_env(torch)
     if not os.path.isdir(os.path.join(ROOT, "vbmc_tpu_torch")):
         print(f"chip_smoke: no vbmc_tpu_torch package beside {__file__}; run "
@@ -433,6 +645,7 @@ def main():
     kernels.viqr_acq.load()
     log(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in libs.values())}"
         f" in {time.monotonic() - t:.1f} s")
+    check_dmma(libs)
 
     results = phase_kernels(torch, kernels)
     launches = {}
@@ -440,21 +653,8 @@ def main():
     launches["viqr_acq"], main_v = phase_noisy(torch, kernels)
     main_path = {"prospective_acq": main_p, "viqr_acq": main_v}
 
-    replaces = {"prospective_acq": "vbmc_tpu/pallas_kernels.py:157",
-                "viqr_acq": "vbmc_tpu/pallas_kernels.py:336"}
     log(f"[env] nvidia-smi: {smi}")
-    log(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"vbmc_tpu_torch/csrc/{name}.cu",
-        "replaces": replaces[name],
-        "launches": launches[name],
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in results[name] + [main_path[name]]
-                           if "float64" in r["tag"]),
-        "ms": main_path[name]["ms"], "plain_ms": main_path[name]["plain_ms"],
-        "timed_at": main_path[name]["tag"],
-        "all": results[name] + [main_path[name]]}
-        for name in ("prospective_acq", "viqr_acq")]}))
+    log(kernels_line(results, main_path, launches))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from vbmc_tpu.options import VBMCOptions
+from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch.main import vbmc
 from vbmc_tpu_torch.vp import vp_moments
 
@@ -72,11 +72,11 @@ def test_noisy_halfnormal_viqr():
 
 def test_noisy_acquisition_hedge_chooses_between_viqr_and_imiqr(monkeypatch):
     """With two acquisitions and ``acq_hedge`` the hedge of the reference
-    (`vbmc_tpu.hedge.AcqHedge`) picks one per iteration and is rewarded
+    (`vbmc_tpu_torch.hedge.AcqHedge`) picks one per iteration and is rewarded
     after each; at this seed it picks each once, so IMIQR runs end to end.
     The target is an unnormalised 2-D Gaussian (lnZ = log 2 pi) with
     sigma=0.3 noise."""
-    from vbmc_tpu.hedge import AcqHedge
+    from vbmc_tpu_torch.hedge import AcqHedge
     chosen, rewards = [], []
     choose, update = AcqHedge.choose, AcqHedge.update
 

@@ -11,9 +11,10 @@ import torch
 from vbmc_tpu import elbo as jeb
 from vbmc_tpu.gp import GPConfig
 from vbmc_tpu.gp.gp import gp_from_host
-from vbmc_tpu.options import VBMCOptions
+from vbmc_tpu.options import VBMCOptions as JVBMCOptions
 from vbmc_tpu.transforms import create_trinfo
 from vbmc_tpu.vp import make_vp
+from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch import elbo as teb
 from vbmc_tpu_torch.convert import gp_from_dict
 from vbmc_tpu_torch.gp.config import GPConfig as TGPConfig
@@ -60,10 +61,10 @@ def _torch_args(vp):
 @pytest.mark.parametrize("compute_var", [0, 1])
 def test_negelcbo_value_and_gradient_match_jax(opt_weights, compute_var):
     cfg, gp, vp = _setup()
-    opts = VBMCOptions().resolve(D)
+    opts, jopts = VBMCOptions().resolve(D), JVBMCOptions().resolve(D)
     flags = jeb.VPFlags(opt_weights=opt_weights)
     theta = _theta(flags, vp)
-    jbnd = jeb.compute_vp_bounds(gp, opts, K)
+    jbnd = jeb.compute_vp_bounds(gp, jopts, K)
     beta = 0.5 if compute_var else 0.0
 
     def jf(th):

@@ -1,5 +1,6 @@
-"""The port imports no jax, and its copy of GPConfig equals the
-reference's in fields, ids and hyperparameter counts."""
+"""The port imports no jax and nothing of `vbmc_tpu`, `vbmc` defaults to the
+card, and the port's copy of GPConfig equals the reference's in fields, ids
+and hyperparameter counts."""
 
 import ast
 import dataclasses
@@ -35,13 +36,53 @@ def test_every_port_module_imports_without_jax():
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules\n"
             "             if k == 'jax' or k.startswith('jax.')\n"
-            "             or k == 'jaxlib' or k.startswith('jaxlib.'))\n"
+            "             or k == 'jaxlib' or k.startswith('jaxlib.')\n"
+            "             or k == 'vbmc_tpu' or k.startswith('vbmc_tpu.'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_no_port_source_imports_the_jax_package():
+    bad = []
+    for path in sorted((ROOT / "vbmc_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            bad += [(path.name, n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "vbmc_tpu")]
+    assert not bad, bad
+
+
+def test_vbmc_defaults_to_the_card_and_raises_without_one():
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from vbmc_tpu_torch import VBMCOptions, vbmc
+
+    params = inspect.signature(vbmc).parameters
+    assert params["device"].default == "cuda"
+    assert params["dtype"].default == torch.float64
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    calls = []
+
+    def logp(x):
+        calls.append(x)
+        return -0.5 * float(np.sum(x ** 2))
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        vbmc(logp, x0=np.zeros(2), plb=-np.ones(2), pub=np.ones(2),
+             options=VBMCOptions(display="off", max_fun_evals=10))
+    assert not calls   # the target was never evaluated on the CPU instead
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])

@@ -17,8 +17,9 @@ from vbmc_tpu.gp.fit import TrainOptions as JTrainOptions, \
     assemble_hyp_prior as j_prior
 from vbmc_tpu.gp.gp import gp_from_host as j_gp_from_host
 from vbmc_tpu.main import _noise_shaping as j_noise_shaping
-from vbmc_tpu.options import VBMCOptions
+from vbmc_tpu.options import VBMCOptions as JVBMCOptions
 from vbmc_tpu.utils.math import pad_to
+from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch.gp import core as tcore
 from vbmc_tpu_torch.gp.config import GPConfig as TGPConfig
 from vbmc_tpu_torch.gp.fit import TrainOptions, assemble_hyp_prior
@@ -126,5 +127,6 @@ def test_noise_shaping_matches_jax(with_s2):
     y = rng.uniform(-60.0, 0.0, 30)
     s2 = rng.uniform(0.1, 1.0, 30) if with_s2 else None
     opts = VBMCOptions(noise_shaping=True).resolve(D)
+    jopts = JVBMCOptions(noise_shaping=True).resolve(D)
     np.testing.assert_array_equal(_noise_shaping(s2, y, opts),
-                                  j_noise_shaping(s2, y, opts))
+                                  j_noise_shaping(s2, y, jopts))

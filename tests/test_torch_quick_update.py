@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from vbmc_tpu.options import VBMCOptions
+from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch.elbo import gplogjoint
 from vbmc_tpu_torch.function_logger import FunctionLogger
 from vbmc_tpu_torch.gp.config import GPConfig

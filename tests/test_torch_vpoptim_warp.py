@@ -11,7 +11,7 @@ from vbmc_tpu.gp import GPConfig
 from vbmc_tpu.gp.gp import gp_from_host
 from vbmc_tpu.gp.fit import assemble_hyp_prior as j_prior, \
     TrainOptions as JTrainOptions
-from vbmc_tpu.options import VBMCOptions
+from vbmc_tpu.options import VBMCOptions as JVBMCOptions
 from vbmc_tpu.transforms import create_trinfo
 from vbmc_tpu.vp import make_vp
 from vbmc_tpu import vpoptim as jvo
@@ -19,6 +19,7 @@ from vbmc_tpu import warp as jwarp
 from vbmc_tpu.active_sample import _train_box as j_train_box, \
     _geomean_length_scale as j_geomean_ell
 from vbmc_tpu.utils.math import weighted_mean_cov as j_wmc
+from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch import vpoptim as tvo
 from vbmc_tpu_torch import warp as twarp
 from vbmc_tpu_torch.active_sample import _train_box as t_train_box, \
@@ -80,11 +81,11 @@ def test_vbinit_matches_jax_for_the_same_seed():
 def test_vpoptimize_reaches_the_reference_elbo(warmup):
     cfg, _, _, gp = _gaussian_gp()
     K = 2
-    opts = VBMCOptions().resolve(D)
+    opts, jopts = VBMCOptions().resolve(D), JVBMCOptions().resolve(D)
     jv = _vp0(K)
-    ref = jvo.vpoptimize(jax.random.PRNGKey(1), cfg, jv, gp, K, opts,
+    ref = jvo.vpoptimize(jax.random.PRNGKey(1), cfg, jv, gp, K, jopts,
                          warmup=warmup, entropy_switch=False,
-                         n_fast_opts=opts.evalopt("ns_elbo", K),
+                         n_fast_opts=jopts.evalopt("ns_elbo", K),
                          n_slow_opts=2, host_seed=3)
     tgp = gp_from_dict(jax.device_get(gp._asdict()))
     tv = vp_from_dict(jax.device_get(jv._asdict()))

@@ -2,9 +2,10 @@
 path and the noisy-target path.
 
 A port of `vbmc_tpu` (the JAX reference, which stays beside it). The
-package imports torch and numpy and never jax. It reuses three numpy-only
-modules of the reference by import: `vbmc_tpu.options`, `vbmc_tpu.state`
-and `vbmc_tpu.hedge`.
+package imports torch and numpy, never jax and nothing of `vbmc_tpu`: the
+host-side modules it shares with the reference in behaviour (`options`,
+`state`, `hedge`, `gp.config`) are its own copies. `vbmc` runs on the card
+unless the caller passes ``device="cpu"``.
 
 The acquisition sweep of every acquired point runs as a hand-written CUDA
 kernel on CUDA tensors (`kernels.py`: `csrc/prospective_acq.cu` for
@@ -17,7 +18,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "vbmc": "vbmc_tpu_torch.main",
     "VBMCResult": "vbmc_tpu_torch.main",
-    "VBMCOptions": "vbmc_tpu.options",
+    "VBMCOptions": "vbmc_tpu_torch.options",
     "VariationalPosterior": "vbmc_tpu_torch.vp",
     "vp_rnd": "vbmc_tpu_torch.vp",
     "vp_moments": "vbmc_tpu_torch.vp",

@@ -10,6 +10,11 @@ Each wrapper runs its plain version (`*_reference`) on a CPU tensor; on a
 CUDA tensor it launches the kernel or raises, with no fallback. Each launch
 adds one to the wrapper's ``launches``.
 
+Both kernels share `csrc/gp_tile.cuh`: per block, the ks tile computed once
+in dynamic shared memory, the left operands (Binv, invKzk) streamed through
+a cp.async ring, and the float64 products on the FP64 tensor cores
+(`mma.sync`, DMMA); float32 uses IEEE FMAs, never TF32.
+
 The kernels are compiled with nvcc, one shared library with a plain C
 interface per source, at first use (into ``build/`` beside the package,
 which git ignores) and loaded with ctypes; nothing is built or imported
@@ -37,6 +42,10 @@ from vbmc_tpu_torch.vp import vp_log_pdf_trans
 
 _LOG_REALMIN = -708.0
 _MAX_D = 32
+# The kernels stage the training axis up to 32 rows at a time, and their narrowest
+# candidate tile holds N = 1024 float64 rows in a block's shared memory.
+_N_STEP = 32
+_MAX_N = 1024
 # Bound on S * M * Na elements of one chunk of the plain VIQR sweep (its
 # (S, M, Na) temporaries): 2^23 float64 values = 64 MB each.
 _VIQR_CHUNK_ELEMS = 2 ** 23
@@ -116,15 +125,20 @@ def viqr_acq_reference(cfg: GPConfig, Xs, gp, ais, sn2c, tol_var,
 
 SOURCES = {"prospective_acq": CSRC / "prospective_acq.cu",
            "viqr_acq": CSRC / "viqr_acq.cu"}
+# The phases of pass 1 that a -DVBMC_PROFILE build times (gp_tile.cuh).
+PHASES = ("setup", "ks_tile", "binv_steps", "binv_fold", "reduce",
+          "invkzk_steps", "viqr_epilogue", "merge")
 
 
-def build(source: Path, verbose: bool = False) -> Path:
+def build(source: Path, verbose: bool = False, profile: bool = False) -> Path:
     """Compile one kernel source into its own library in ``build/`` unless
     one built from the same source, headers and flags is already there.
-    Returns the library path."""
+    ``profile`` adds ``-DVBMC_PROFILE``, the cycle marks of pass 1 (a
+    measurement build). Returns the library path."""
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    flags = (*NVCC_FLAGS, *(("-DVBMC_PROFILE",) if profile else ()))
     tag = hashlib.sha256(source.read_bytes() + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if lib.exists():
         return lib
@@ -134,7 +148,7 @@ def build(source: Path, verbose: bool = False) -> Path:
                            f"build {source.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+    cmd = [nvcc, *flags, *(("-Xptxas", "-v") if verbose else ()),
            "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -146,11 +160,11 @@ def build(source: Path, verbose: bool = False) -> Path:
     return lib
 
 
-def build_all(verbose: bool = False) -> dict:
+def build_all(verbose: bool = False, profile: bool = False) -> dict:
     """Build every kernel source at once, one nvcc process each. Returns
     {name: library path}."""
     with ThreadPoolExecutor(len(SOURCES)) as ex:
-        futs = {name: ex.submit(build, src, verbose)
+        futs = {name: ex.submit(build, src, verbose, profile)
                 for name, src in SOURCES.items()}
         return {name: f.result() for name, f in futs.items()}
 
@@ -166,17 +180,51 @@ class _Kernel:
     def __init__(self):
         self.launches = 0
         self._lib = None
+        self._profile = False
 
-    def load(self):
+    def load(self, profile=None):
+        """The kernel's library, built if need be. ``profile`` True or
+        False switches every later launch to the build with or without the
+        cycle marks; None keeps the build in use."""
+        if profile is not None and bool(profile) != self._profile:
+            self._lib, self._profile = None, bool(profile)
         if self._lib is None:
-            lib = ctypes.CDLL(str(build(SOURCES[self.name])))
+            lib = ctypes.CDLL(str(build(SOURCES[self.name],
+                                        profile=self._profile)))
             for suffix in ("f64", "f32"):
                 fn = getattr(lib, f"{self.name}_{suffix}")
                 fn.argtypes = ([ctypes.c_void_p] * self.n_ptr
                                + [ctypes.c_int] * self.n_int + list(self.tail))
                 fn.restype = ctypes.c_int
+            tile = getattr(lib, f"{self.name}_tile")
+            tile.argtypes = [ctypes.c_int] * 3
+            tile.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def tile_width(self, N: int, D: int, dtype) -> int:
+        """Candidates per block of pass 1 at N training slots (the launcher
+        picks the plan from N; `csrc/gp_tile.cuh`). Pass 1 evaluates whole
+        tiles, masked training rows included."""
+        fn = getattr(self.load(), f"{self.name}_tile")
+        return int(fn(N, D, int(dtype == torch.float64)))
+
+    def read_phases(self, reset: bool = True):
+        """The eight cycle sums of pass 1's phases since the last reset
+        (`csrc/gp_tile.cuh`, VBMC_PROFILE), summed over blocks; the library
+        in use must have been built with ``-DVBMC_PROFILE``. Synchronises
+        the device."""
+        fn = getattr(self.load(), f"{self.name}_profile", None)
+        if fn is None:
+            raise RuntimeError(f"{self.name}: the library in use was built "
+                               f"without -DVBMC_PROFILE")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        buf = (ctypes.c_ulonglong * len(PHASES))()
+        err = fn(buf, int(reset))
+        if err != 0:
+            raise RuntimeError(f"{self.name}_profile: CUDA error {err}")
+        return dict(zip(PHASES, buf))
 
     def _check_config(self, cfg: GPConfig):
         if not kernel_supports(cfg):
@@ -214,6 +262,10 @@ class _Kernel:
         if D != cfg.D or D > _MAX_D or nhyp != cfg.nhyp:
             raise ValueError(f"{self.name} kernel: D={D}, nhyp={nhyp} for "
                              f"{cfg} (D <= {_MAX_D})")
+        if N % _N_STEP or not 0 < N <= _MAX_N:
+            raise ValueError(f"{self.name} kernel: N={N} training slots; it "
+                             f"takes a multiple of {_N_STEP} up to {_MAX_N} "
+                             f"(every rung of utils.math.N_BUCKETS is one)")
         return M, D, N, S, nhyp, {
             "Xs": (Xs, (M, D)), "X": (gp.X, (N, D)),
             "hyp": (gp.hyp, (S, nhyp)), "alpha": (gp.alpha, (S, N)),

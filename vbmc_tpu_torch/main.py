@@ -3,9 +3,9 @@ noiseless targets and for noisy ones that return their noise SD or leave it
 to the GP.
 
 Orchestration (state machine, warm-up, termination, warp-undo
-transactions, the acquisition hedge) is host Python and reuses
-`vbmc_tpu.options`, `vbmc_tpu.state` and `vbmc_tpu.hedge` by import; every
-numeric path runs in PyTorch on the device the caller names.
+transactions, the acquisition hedge) is host Python on numpy, in the port's
+own `options`, `state` and `hedge` modules; every numeric path runs in
+PyTorch on the card, or on the CPU when the caller asks for it.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from vbmc_tpu.options import VBMCOptions, ResolvedOptions
-from vbmc_tpu import state as st
-from vbmc_tpu.hedge import AcqHedge
+from vbmc_tpu_torch.options import VBMCOptions, ResolvedOptions
+from vbmc_tpu_torch import state as st
+from vbmc_tpu_torch.hedge import AcqHedge
 from vbmc_tpu_torch.transforms import (create_trinfo, direct_np, LOGIT,
                                        PROBIT, STUDENT4)
 from vbmc_tpu_torch.function_logger import FunctionLogger
@@ -336,15 +336,22 @@ def _collect_hyp_starts(stats: st.Stats, hyp_warm, ninit: int):
 
 
 def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
-         options: Optional[VBMCOptions] = None, *, device,
+         options: Optional[VBMCOptions] = None, *, device="cuda",
          dtype=torch.float64) -> VBMCResult:
     """Run VBMC on a black-box log joint ``fun`` (with
     ``specify_target_noise`` it returns (value, noise SD)): the same call as
-    `vbmc_tpu.vbmc`, plus the device and dtype every tensor lives in.
-    Randomness is one `torch.Generator` on that device seeded from
+    `vbmc_tpu.vbmc`, plus the device and dtype every tensor lives in. The
+    device is the card unless the caller names another (``device="cpu"``);
+    without a card the default raises, and nothing moves to the CPU on its
+    own. Randomness is one `torch.Generator` on that device seeded from
     ``options.seed``."""
     t0 = time.monotonic()
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"vbmc: device {str(device)!r} was asked for but "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to run "
+            "on the CPU")
     # Reduced-precision products corrupt the quadrature covariance (the
     # reference sets jax_default_matmul_precision=highest for the same
     # reason): keep float32 products in full float32 on the card.
