@@ -38,16 +38,34 @@ Phases, each printing what it found; any failure exits non-zero:
    candidates a ragged M rounds up to included), and, in the log lines
    only, the time of the design before this one at the same shape.
 4. The noiseless path: `vbmc(..., device="cuda", dtype=torch.float64)` on a
-   6-D Gaussian (ensemble hyperparameter sampler) and a correlated 3-D cigar
-   (rotoscale warping), each held to |ELBO - lnZ| < 0.5 and posterior-mean
-   RMSE < 0.5; `prospective_acq` must have launched at least once per
-   acquired point. Then that kernel at the shapes of the 6-D run's last GP.
+   6-D Gaussian (50 evaluations; ensemble hyperparameter sampler) and a
+   correlated 3-D cigar (60 evaluations; rotoscale warping), each held to
+   |ELBO - lnZ| < 0.5 and posterior-mean RMSE < 0.5; `prospective_acq` must
+   have launched at least once per acquired point. Then that kernel at the
+   shapes of the 6-D run's last GP.
+   Then `cigar3_families`: the cigar with `gp_mean_fun="negquadse"`,
+   `fitness_shaping=True` and `search_acq_fcn=("prospective_log",)`, 60
+   evaluations, held to the same gate: the sweep's dispatch must have
+   chosen the plain evaluation, so both kernels must count 0 launches.
 5. The noisy path: the same call with `specify_target_noise=True` on the
    2-D half-normal with sigma=1 additive noise (the target returns its
-   value and SD 1), held to the same gate; `viqr_acq` must have launched at
-   least once per acquired point and at least one per-point full update
-   must have run. Then that kernel at the shapes of the run's last GP.
-6. A JSON line with every kernel's numbers, then the last line
+   value and SD 1; 80 evaluations), held to the same gate; `viqr_acq` must
+   have launched at least once per acquired point and at least one
+   per-point full update must have run. Then that kernel at the shapes of
+   the run's last GP.
+   Then `halfnorm2_noisy_repeat`: the same target with
+   `max_repeated_observations=2`, 60 evaluations, same gate: the proposals
+   take the host-side search path, which must still sweep through
+   `viqr_acq` once per acquired point; the line says how many evaluations
+   were repeats of a point already observed.
+6. Every acquisition that needs no importance-sampling set (`prospective`,
+   `prospective_sn2`, `prospective_log`, `us`, `eig`) through
+   `evaluate_acquisition` at the last GP and VP of the `halfnorm2_noisy`
+   run on 8192 candidates: the card against the same call on CPU copies of
+   the tensors (float64, rtol 1e-8 plus 1e-6 of the largest value where
+   the GP's variance cancels, same argmin), with the CUDA-event time of
+   each.
+7. A JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 The launch counts of a path are set to 0 just before it runs and read just
@@ -186,16 +204,19 @@ def viqr_inputs(torch, cfg, gp, vp, Xs, seed=0, n_box=100, drop=0.0):
     return ais, sn2c
 
 
-def cast_tree(torch, obj, dtype):
+def cast_tree(torch, obj, dtype=None, device=None):
     """A copy of a dataclass with its floating-point tensors (recursively
-    through nested dataclasses) cast to dtype."""
+    through nested dataclasses) cast to ``dtype`` and, with ``device``, all
+    of its tensors moved there."""
     import dataclasses
 
     def cast(v):
         if dataclasses.is_dataclass(v):
-            return cast_tree(torch, v, dtype)
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            return v.to(dtype)
+            return cast_tree(torch, v, dtype, device)
+        if isinstance(v, torch.Tensor):
+            if dtype is not None and v.is_floating_point():
+                v = v.to(dtype)
+            return v if device is None else v.to(device)
         return v
 
     return dataclasses.replace(obj, **{
@@ -451,7 +472,9 @@ def phase_kernels(torch, kernels):
 def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
                options, lb=None, ub=None, plb=None, pub=None):
     """One `vbmc` run on the card, held to the gate. ``kernel``: the launch
-    counter the run must advance at least once per acquired point."""
+    counter the run must advance at least once per acquired point; None for
+    a run whose sweeps the dispatch gives to the plain evaluation, which
+    must launch neither kernel."""
     from vbmc_tpu_torch.main import vbmc
     from vbmc_tpu_torch.vp import vp_moments
 
@@ -472,19 +495,25 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
     err = abs(res.elbo - lnz)
     rmse = float(np.sqrt(np.mean((mean - mean_true) ** 2)))
     acquired = res.func_count - options.resolve(D).fun_eval_start
-    ok = (err < 0.5 and rmse < 0.5 and np.isfinite(res.elbo)
-          and launches[kernel] >= acquired > 0)
+    if kernel is None:
+        launched_ok = not any(launches.values()) and acquired > 0
+    else:
+        launched_ok = launches[kernel] >= acquired > 0
+    ok = err < 0.5 and rmse < 0.5 and np.isfinite(res.elbo) and launched_ok
+    lg = res.logger
+    repeats = int(lg.nevals[:lg.Xn].sum()) - lg.Xn
     log(f"[e2e] {name}: elbo {res.elbo:.4f} (lnZ {lnz:.4f}, err {err:.4f}) "
         f"elbo_sd {res.elbo_sd:.4f} rmse {rmse:.4f} func_count "
         f"{res.func_count} iterations {res.iterations} seconds {secs:.1f} "
         f"peak_device_MiB {peak_mib:.1f} kernel_launches {launches} "
-        f"acquired_points {acquired} quick_updates {res.quick_updates} "
+        f"acquired_points {acquired} repeated_observations {repeats} "
+        f"quick_updates {res.quick_updates} "
         f"warps_made {res.warps_made} warps_undone {res.warps_undone} timers "
         f"{ {k: round(v, 2) for k, v in res.timers.items()} }: "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: end-to-end gate failed")
-    return res, launches[kernel], secs
+    return res, launches.get(kernel, 0), secs
 
 
 def _candidates(torch, res, D):
@@ -519,7 +548,7 @@ def phase_noiseless(torch, kernels):
     res6, l6, _ = run_target(
         torch, kernels, "prospective_acq", "mvn_6d", logp6, D,
         np.full(D, 0.3), lnz, np.zeros(D),
-        VBMCOptions(display="off", max_fun_evals=100, seed=3,
+        VBMCOptions(display="off", max_fun_evals=50, seed=3,
                     min_final_components=20),
         plb=np.full(D, -4.0), pub=np.full(D, 4.0))
 
@@ -536,8 +565,18 @@ def phase_noiseless(torch, kernels):
     _, l3, _ = run_target(
         torch, kernels, "prospective_acq", "cigar_rotoscale_3d", logp_cigar,
         D3, np.full(D3, 0.25), 0.0, np.zeros(D3),
-        VBMCOptions(display="off", max_fun_evals=100, seed=3,
+        VBMCOptions(display="off", max_fun_evals=60, seed=3,
                     min_final_components=20),
+        plb=np.full(D3, -4.0), pub=np.full(D3, 4.0))
+
+    # a mean family and an acquisition outside the kernel: the plain sweep
+    run_target(
+        torch, kernels, None, "cigar3_families", logp_cigar, D3,
+        np.full(D3, 0.25), 0.0, np.zeros(D3),
+        VBMCOptions(display="off", max_fun_evals=60, seed=3,
+                    min_final_components=20, gp_mean_fun="negquadse",
+                    fitness_shaping=True,
+                    search_acq_fcn=("prospective_log",)),
         plb=np.full(D3, -4.0), pub=np.full(D3, 4.0))
 
     gp_last, vp_last, Xs = _candidates(torch, res6, D)
@@ -549,30 +588,119 @@ def phase_noiseless(torch, kernels):
     return l6 + l3, r
 
 
+ACQ_NAMES = ("prospective", "prospective_sn2", "prospective_log", "us",
+             "eig")
+# The card against the CPU, element-wise: |card - cpu| <= ACQ_RTOL |cpu| +
+# ACQ_ATOL_OF_MAX max|cpu|. Both sides run the same float64 PyTorch code and
+# differ in the order of their sums only; fs2 = sf2 - qf and the kernel
+# integral of "eig" are differences of N-term sums of size sf2, so a value
+# carries about N eps sf2 / vtot of relative error on either device. At the
+# last GP of the noisy target's run the largest sf2 among the samples was
+# 1552 to 2101 against a vtot of 0.05 to 0.09 (80 and 100 evaluations; NVIDIA
+# H100 80GB HBM3 at 700 W, torch 2.11), the largest relative difference 4e-9
+# to 2.7e-8, for "eig" 3.9e-6. The relative bound alone holds only at a
+# well-conditioned GP; the second term allows the ill-conditioned values an
+# error of a millionth of the largest value, twenty times what was seen.
+ACQ_RTOL = 1e-8
+ACQ_ATOL_OF_MAX = 1e-6
+
+
+def phase_acquisitions(torch, cfg, res, opt, gp, vp, Xs):
+    """`evaluate_acquisition` for every name of ACQ_NAMES at the GP and VP
+    of a finished run with resolved options ``opt``: on the card against
+    the same call on CPU copies of the tensors (float64, ACQ_RTOL and
+    ACQ_ATOL_OF_MAX, same argmin, the same finite values), and the
+    CUDA-event time of each on the card."""
+    from vbmc_tpu_torch.acquisitions import AcqState, evaluate_acquisition
+    from vbmc_tpu_torch.active_sample import (_hard_bound_eps,
+                                              _var_log_joint)
+    from vbmc_tpu_torch.gp.predict import gp_predict
+
+    lb_eps, ub_eps = _hard_bound_eps(res.logger, opt)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device="cuda")
+
+    with torch.no_grad():
+        hm = gp.hyp_mask.to(gp.hyp.dtype)
+        state = AcqState(
+            ymax=t(res.logger.ymax), tol_var=t(opt.tol_gp_var),
+            lb_eps_orig=t(lb_eps), ub_eps_orig=t(ub_eps), regularize=True,
+            gp_length_scale=torch.exp((gp.hyp[:, :cfg.D] * hm[:, None]).sum(0)
+                                      / hm.sum()),
+            var_log_joint=_var_log_joint(cfg, gp, vp))
+        gp_c, vp_c, state_c = (cast_tree(torch, o, device="cpu")
+                               for o in (gp, vp, state))
+        Xs_c = Xs.cpu()
+        # what the relative differences below come from: the largest output
+        # scale among the samples against the candidates' total variance
+        vtot = gp_predict(cfg, gp_c, Xs_c)[1]
+        sf2 = float(torch.exp(2.0 * gp_c.hyp[gp_c.hyp_mask,
+                                             cfg.idx_log_sf]).max())
+        for name in ACQ_NAMES:
+            got = evaluate_acquisition(cfg, name, Xs, vp, gp, state)
+            ref = evaluate_acquisition(cfg, name, Xs_c, vp_c, gp_c, state_c)
+            got_c = got.cpu()
+            fin = torch.isfinite(ref)
+            err = torch.where(fin, (got_c - ref).abs(), 0.0)
+            top = float(ref[fin].abs().max())
+            rel = err / ref.abs().clamp_min(1e-300)
+            worst = int(rel.argmax())
+            same = int(got_c.argmin()) == int(ref.argmin())
+            ok = (bool(torch.allclose(got_c, ref, rtol=ACQ_RTOL,
+                                      atol=ACQ_ATOL_OF_MAX * top))
+                  and same and bool((torch.isfinite(got_c) == fin).all()))
+            ms = cuda_time_ms(
+                torch, lambda: evaluate_acquisition(cfg, name, Xs, vp, gp,
+                                                    state),
+                repeats=5, inner=2)
+            log(f"[acq] {name} N={gp.X.shape[0]} S={gp.hyp.shape[0]} "
+                f"K={vp.mu.shape[0]} M={Xs.shape[0]} D={cfg.D} float64: card "
+                f"vs CPU max_rel_err {float(rel[worst]):.3e} (value "
+                f"{float(ref[worst]):.4g}, vtot {float(vtot[worst]):.4g} "
+                f"there; largest sf2 {sf2:.5g}; "
+                f"{int((rel > ACQ_RTOL).sum())} candidates above rtol) "
+                f"max_abs_err/max|acq| {float(err.max()) / top:.3e} (rule: "
+                f"rtol {ACQ_RTOL} + {ACQ_ATOL_OF_MAX} max|acq|) finite "
+                f"{int(fin.sum())} argmin_equal {same} min "
+                f"{float(ref.min()):.6g}; plain PyTorch on the card "
+                f"{ms:.3f} ms: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: the card and the CPU disagree")
+
+
 def phase_noisy(torch, kernels, seed=1):
     """vbmc on the card on the noisy 2-D half-normal (sigma=1 additive noise,
     the target returns its SD; `bench.py` block `halfnorm2_noisy`), then
-    `viqr_acq` against its plain version at the shapes of the run's last
-    GP. Returns the kernel's launches in the run and the comparison."""
+    `viqr_acq` against its plain version and every plain acquisition against
+    the CPU at the shapes of the run's last GP, then the same target with
+    repeated observations. Returns the kernel's launches in the two runs and
+    the comparison."""
     from vbmc_tpu_torch import VBMCOptions
     from vbmc_tpu_torch.gp.config import GPConfig
 
     D = 2
     sd = np.array([1.0, 0.6])
-    noise = np.random.default_rng(1000 + seed)
 
-    def halfnorm_noisy(x):
-        y = (-0.5 * np.sum((x / sd) ** 2) - np.log(2 * np.pi)
-             - np.sum(np.log(sd)))
-        return float(y + noise.standard_normal()), 1.0
+    def run(name, evals, **kw):
+        noise = np.random.default_rng(1000 + seed)
 
-    res, launches, _ = run_target(
-        torch, kernels, "viqr_acq", "halfnorm2_noisy", halfnorm_noisy, D,
-        np.array([0.5, 0.5]), float(np.log(0.25)), sd * np.sqrt(2 / np.pi),
-        VBMCOptions(display="off", max_fun_evals=100, seed=seed,
-                    min_final_components=20, specify_target_noise=True),
-        lb=np.zeros(D), ub=np.full(D, 10.0), plb=np.full(D, 0.05),
-        pub=np.full(D, 3.0))
+        def halfnorm_noisy(x):
+            y = (-0.5 * np.sum((x / sd) ** 2) - np.log(2 * np.pi)
+                 - np.sum(np.log(sd)))
+            return float(y + noise.standard_normal()), 1.0
+
+        return run_target(
+            torch, kernels, "viqr_acq", name, halfnorm_noisy, D,
+            np.array([0.5, 0.5]), float(np.log(0.25)),
+            sd * np.sqrt(2 / np.pi),
+            VBMCOptions(display="off", max_fun_evals=evals, seed=seed,
+                        min_final_components=20, specify_target_noise=True,
+                        **kw),
+            lb=np.zeros(D), ub=np.full(D, 10.0), plb=np.full(D, 0.05),
+            pub=np.full(D, 3.0))
+
+    res, launches, _ = run("halfnorm2_noisy", 80)
     if res.quick_updates < 1:
         raise AssertionError("halfnorm2_noisy: no per-point full update ran")
 
@@ -583,7 +711,13 @@ def phase_noisy(torch, kernels, seed=1):
            f"M=8192 D={D} Na={ais.Xa.shape[0]} float64")
     r = compare_viqr(torch, kernels, tag, cfg, gp_last, ais, sn2c, Xs, 1e-4)
     r.pop("ref")
-    return launches, r
+    phase_acquisitions(torch, cfg, res, VBMCOptions().resolve(D), gp_last,
+                       vp_last, Xs)
+    del res, gp_last, vp_last, ais
+    # the host-side search path: still one sweep through the kernel a point
+    _, launches_rep, _ = run("halfnorm2_noisy_repeat", 60,
+                             max_repeated_observations=2)
+    return launches + launches_rep, r
 
 
 def check_dmma(libs):

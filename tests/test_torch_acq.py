@@ -1,8 +1,13 @@
-"""The port's prospective acquisition against the JAX reference: the plain
-sweep against `evaluate_acquisition` and against the Pallas kernel
-`fused_prospective_acq` in interpret mode, at the shapes of
-`tests/test_pallas.py`. The CUDA kernel itself runs only on the card (the
-`cuda` case skips here; `chip_smoke.py` carries it)."""
+"""The port's acquisitions against the JAX reference: the plain
+prospective sweep against `evaluate_acquisition` and against the Pallas
+kernel `fused_prospective_acq` in interpret mode, at the shapes of
+`tests/test_pallas.py`; every other acquisition, with regularisation on
+and off and with bandwidth smoothing; and the sweep's choice between the
+kernel's wrapper and the plain evaluation. The CUDA kernel itself runs only
+on the card (the `cuda` case skips here; `chip_smoke.py` carries it)."""
+
+import ast
+import inspect
 
 import numpy as np
 import jax
@@ -20,6 +25,8 @@ from vbmc_tpu_torch import acquisitions as tacq
 from vbmc_tpu_torch import kernels
 from vbmc_tpu_torch.convert import gp_from_dict, vp_from_dict
 from vbmc_tpu_torch.gp.config import GPConfig as TGPConfig
+
+from test_torch_gp_problems import gp_problem, tcfg_of
 
 torch.set_num_threads(1)
 
@@ -142,8 +149,169 @@ def test_wrapper_refuses_configurations_outside_the_kernel(change):
 
 
 def test_unported_acquisition_raises():
-    with pytest.raises(NotImplementedError):
-        tacq.check_acq("eig")
+    """Every acquisition of the reference is ported; an unknown name is a
+    ValueError, as in `vbmc_tpu/main.py:409-416`."""
+    assert set(tacq.ACQ_INFO) == set(__import__(
+        "vbmc_tpu.acquisitions", fromlist=["ACQ_INFO"]).ACQ_INFO)
+    for name in tacq.ACQ_INFO:
+        tacq.check_acq(name)
+    with pytest.raises(ValueError, match="unknown acquisition"):
+        tacq.check_acq("thompson")
+    cfg, gp, vp, Xs = _setup(M=8)
+    tgp, tvp = _to_torch(gp, vp)
+    with pytest.raises(ValueError, match="unknown acquisition"):
+        tacq.evaluate_acquisition(TGPConfig(D=3), "thompson",
+                                  torch.tensor(Xs), tvp, tgp, _tstate(3))
+    with pytest.raises(ValueError, match="importance-sampling"):
+        tacq.evaluate_acquisition(TGPConfig(D=3), "viqr", torch.tensor(Xs),
+                                  tvp, tgp, _tstate(3))
+
+
+def test_acq_info_matches_reference():
+    from vbmc_tpu.acquisitions import ACQ_INFO
+    assert tacq.ACQ_INFO == ACQ_INFO
+
+
+def _family_setup(seed, M=256, K=5, **fam):
+    """A GP of any family with a VP, candidates and both packages' state,
+    the variance threshold set where it engages on part of the candidates."""
+    cfg, X, y, s2, hyps = gp_problem(seed, n=30, **fam)
+    D, S = cfg.D, hyps.shape[0]
+    rng = np.random.default_rng(seed + 100)
+    gp = gp_from_host(cfg, X, y, s2, hyps, n_bucket=32, s_bucket=S)
+    trinfo = create_trinfo([-np.inf] * D, [np.inf] * D, [-2.0] * D, [2.0] * D)
+    w = rng.random(K) + 0.3
+    vp = make_vp(trinfo, rng.uniform(-1, 1, (K, D)),
+                 0.4 + 0.2 * rng.random(K), np.exp(0.1 * rng.standard_normal(D)),
+                 w=w / w.sum(), k_max=8)
+    Xs = rng.uniform(-2.5, 2.5, (M, D))
+    gls = rng.uniform(0.5, 1.5, D)
+    vlj = 0.5 + rng.random(S)
+    delta = 0.1 + 0.2 * rng.random(D)
+
+    def states(regularize, tol_var):
+        js = AcqState(ymax=jnp.asarray(0.7), tol_var=jnp.asarray(tol_var),
+                      lb_eps_orig=jnp.full((D,), -np.inf),
+                      ub_eps_orig=jnp.full((D,), np.inf),
+                      gp_length_scale=jnp.asarray(gls),
+                      var_log_joint=jnp.asarray(vlj),
+                      regularize=jnp.asarray(regularize),
+                      delta=jnp.asarray(delta))
+        ts = tacq.AcqState(
+            ymax=torch.tensor(0.7, dtype=torch.float64),
+            tol_var=torch.tensor(tol_var, dtype=torch.float64),
+            lb_eps_orig=torch.full((D,), -np.inf, dtype=torch.float64),
+            ub_eps_orig=torch.full((D,), np.inf, dtype=torch.float64),
+            regularize=regularize, gp_length_scale=torch.tensor(gls),
+            var_log_joint=torch.tensor(vlj), delta=torch.tensor(delta))
+        return js, ts
+
+    return cfg, gp, vp, Xs, states
+
+
+NAMES = ["prospective", "prospective_sn2", "prospective_log", "us", "eig"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("regularize", [True, False])
+@pytest.mark.parametrize("smooth", [False, True])
+def test_every_acquisition_matches_jax(name, regularize, smooth):
+    """Values at rtol 1e-8 (the tolerance of the VIQR evaluation against
+    JAX) and the same argmin, on a noisy GP so that the nearest-noise terms
+    are not constant; the variance threshold is the median predictive
+    variance, so regularisation touches about half the candidates."""
+    cfg, gp, vp, Xs, states = _family_setup(11, user_noise=1, noisy=True)
+    js, ts = states(regularize, 0.05)
+    ref = np.asarray(evaluate_acquisition(cfg, name, jnp.asarray(Xs), vp, gp,
+                                          js, smooth=smooth))
+    tgp, tvp = _to_torch(gp, vp)
+    got = tacq.evaluate_acquisition(tcfg_of(cfg), name, torch.tensor(Xs), tvp,
+                                    tgp, ts, smooth=smooth).numpy()
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)
+    assert int(np.argmin(got)) == int(np.argmin(ref))
+    if regularize:   # the threshold did engage
+        js0, _ = states(False, 0.05)
+        ref0 = np.asarray(evaluate_acquisition(
+            cfg, name, jnp.asarray(Xs), vp, gp, js0, smooth=smooth))
+        assert (ref0 != ref).any()
+
+
+@pytest.mark.parametrize("fam", [dict(meanfun=8), dict(meanfun=12),
+                                 dict(intmean=2), dict(outwarp=2),
+                                 dict(meanfun=22)],
+                         ids=lambda f: "-".join(f"{k}{v}"
+                                                for k, v in f.items()))
+@pytest.mark.parametrize("name", ["prospective", "prospective_log", "eig"])
+def test_acquisitions_on_other_gp_families_match_jax(fam, name):
+    """The acquisitions over GPs that the kernels do not compute (rtol
+    1e-8, same argmin)."""
+    cfg, gp, vp, Xs, states = _family_setup(12, M=128, **fam)
+    js, ts = states(True, 1e-3)
+    ref = np.asarray(evaluate_acquisition(cfg, name, jnp.asarray(Xs), vp, gp,
+                                          js))
+    tgp, tvp = _to_torch(gp, vp)
+    got = tacq.evaluate_acquisition(tcfg_of(cfg), name, torch.tensor(Xs), tvp,
+                                    tgp, ts).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)
+    assert int(np.argmin(got)) == int(np.argmin(ref))
+
+
+@pytest.mark.parametrize("case", [
+    dict(fam=dict(meanfun=8), name="prospective", smooth=False),
+    dict(fam=dict(outwarp=1), name="prospective", smooth=False),
+    dict(fam=dict(intmean=1), name="prospective", smooth=False),
+    dict(fam=dict(), name="prospective", smooth=True),
+    dict(fam=dict(), name="prospective_log", smooth=False),
+    dict(fam=dict(), name="us", smooth=False),
+    dict(fam=dict(user_noise=1, noisy=True), name="prospective_sn2",
+         smooth=False),
+    dict(fam=dict(), name="eig", smooth=False),
+], ids=lambda c: f"{c['name']}-{c['fam']}-{c['smooth']}")
+def test_sweep_takes_the_plain_path_outside_the_kernel(case, monkeypatch):
+    """The dispatch of `vbmc_tpu/acquisitions.py:160-193`: outside
+    `kernel_supports`, for a name other than "prospective", or with
+    smoothing, the sweep is `evaluate_acquisition`; the kernel's wrapper is
+    not called, and nothing is added to its launches."""
+    cfg, gp, vp, Xs, states = _family_setup(13, M=64, **case["fam"])
+    _, ts = states(True, 1e-3)
+    tgp, tvp = _to_torch(gp, vp)
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(tacq, "prospective_acq", refuse)
+    before = kernels.prospective_acq.launches
+    swept = tacq.sweep_acquisition(tcfg_of(cfg), case["name"],
+                                   torch.tensor(Xs), tvp, tgp, ts,
+                                   smooth=case["smooth"])
+    plain = tacq.evaluate_acquisition(tcfg_of(cfg), case["name"],
+                                      torch.tensor(Xs), tvp, tgp, ts,
+                                      smooth=case["smooth"])
+    assert torch.equal(swept, plain)
+    assert kernels.prospective_acq.launches == before
+
+
+def test_sweep_takes_the_wrapper_inside_the_kernel(monkeypatch):
+    cfg, gp, vp, Xs = _setup(M=32)
+    tgp, tvp = _to_torch(gp, vp)
+    calls = []
+    real = tacq.prospective_acq
+    monkeypatch.setattr(tacq, "prospective_acq",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    tacq.sweep_acquisition(TGPConfig(D=3), "prospective", torch.tensor(Xs),
+                           tvp, tgp, _tstate(3))
+    assert calls == [1]
+
+
+def test_no_try_surrounds_a_launch():
+    """A failed build or launch raises: the modules that choose and launch
+    the kernels hold no `try` at all."""
+    from vbmc_tpu_torch import active_is, active_sample
+    for mod in (kernels, tacq, active_is, active_sample):
+        tree = ast.parse(inspect.getsource(mod))
+        tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        assert not tries, (mod.__name__, tries)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@ nearest-noise lookup, the plain evaluation on the same (converted)
 importance-sampling state, the plain sweep against the Pallas kernel
 `fused_viqr_acq` in interpret mode on the padded inputs of
 `tests/test_pallas.py`, the proposal density, and the stochastic IS set
-against the grid oracle of `tests/test_active_is.py`. The CUDA kernel itself
-runs only on the card (the `cuda` case skips here; `chip_smoke.py` carries
+against the grid oracle of `tests/test_active_is.py`, the kernel integral
+`int_kernel` of "eig", and the sweep's choice between the kernel's wrapper
+and the plain evaluation. The CUDA kernel itself runs only on the card (the `cuda` case skips here; `chip_smoke.py` carries
 it)."""
 
 import numpy as np
@@ -20,6 +21,7 @@ from vbmc_tpu.transforms import create_trinfo
 from vbmc_tpu.acquisitions import AcqState, _nearest_noise as j_nearest
 from vbmc_tpu.active_is import (build_is_state_core as j_build,
                                 evaluate_is_acquisition as j_evaluate,
+                                int_kernel as j_int_kernel,
                                 _mixture_draw as j_mixture_draw)
 from vbmc_tpu.pallas_kernels import fused_viqr_acq
 from vbmc_tpu_torch import acquisitions as tacq
@@ -285,6 +287,81 @@ def test_wrapper_refuses_configurations_outside_the_kernel(change):
         kernels.viqr_acq(TGPConfig(D=D, user_noise=1, **change),
                          torch.tensor(Xs), tgp, tais,
                          torch.ones(16, dtype=torch.float64), 1e-4)
+
+
+@pytest.mark.parametrize("meanfun", [0, 4, 8])
+def test_int_kernel_matches_jax(meanfun):
+    """Cov(f(x_m), int q f) per sample, products with the reference's own
+    Binv: rtol 1e-8."""
+    from test_torch_gp_problems import gp_problem, tcfg_of
+    cfg, X, y, _, hyps = gp_problem(21, D=D, meanfun=meanfun)
+    gp = gp_from_host(cfg, X, y, None, hyps, n_bucket=32, s_bucket=S)
+    _, _, vp, _, Xs, _ = _setup(M=40)
+    ref = np.asarray(j_int_kernel(cfg, gp, vp, jnp.asarray(Xs)))
+    tgp, tvp = _to_torch(gp, vp)
+    got = tis.int_kernel(tcfg_of(cfg), tgp, tvp, torch.tensor(Xs)).numpy()
+    assert got.shape == (S, 40)
+    np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)
+
+
+def test_int_kernel_refuses_other_covariances():
+    cfg, gp, vp, _, Xs, _ = _setup(M=8)
+    tgp, tvp = _to_torch(gp, vp)
+    with pytest.raises(ValueError, match="SE-ard"):
+        tis.int_kernel(TGPConfig(D=D, covfun=3, user_noise=1), tgp, tvp,
+                       torch.tensor(Xs))
+
+
+@pytest.mark.parametrize("fam", [dict(meanfun=8), dict(meanfun=12),
+                                 dict(intmean=1), dict(outwarp=2)],
+                         ids=lambda f: "-".join(f"{k}{v}"
+                                                for k, v in f.items()))
+@pytest.mark.parametrize("name", ["viqr", "imiqr"])
+def test_sweep_takes_the_plain_path_outside_the_kernel(fam, name,
+                                                       monkeypatch):
+    """The dispatch of `vbmc_tpu/active_is.py:322-365`: outside
+    `kernel_supports` the sweep is `evaluate_is_acquisition`, equal to the
+    reference's at rtol 1e-8 on the reference's own IS state; the kernel's
+    wrapper is not called and nothing is added to its launches."""
+    from test_torch_gp_problems import gp_problem, tcfg_of
+    cfg, X, y, s2, hyps = gp_problem(22, D=D, n=30, user_noise=1, noisy=True,
+                                     **fam)
+    gp = gp_from_host(cfg, X, y, s2, hyps, n_bucket=32, s_bucket=S)
+    _, _, vp, _, Xs, gls = _setup(M=96)
+    ais = j_build(jax.random.PRNGKey(4), cfg, name, vp, gp, 40, 24, 40,
+                  mh_steps=0)
+    ref = np.asarray(j_evaluate(cfg, name, jnp.asarray(Xs), vp, gp,
+                                _jstate(gls), ais))
+    tgp, tvp, tais = _to_torch(gp, vp, ais)
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(tis, "viqr_acq", refuse)
+    before = kernels.viqr_acq.launches
+    st = _tstate(gls)
+    st.ymax = st.ymax.double()
+    st.tol_var = st.tol_var.double()
+    swept = tis.sweep_is_acquisition(tcfg_of(cfg), name, torch.tensor(Xs),
+                                     tvp, tgp, st, tais)
+    plain = tis.evaluate_is_acquisition(tcfg_of(cfg), name, torch.tensor(Xs),
+                                        tvp, tgp, st, tais)
+    assert torch.equal(swept, plain)
+    assert kernels.viqr_acq.launches == before
+    np.testing.assert_allclose(swept.numpy(), ref, rtol=1e-8, atol=1e-10)
+    assert int(np.argmin(swept.numpy())) == int(np.argmin(ref))
+
+
+def test_sweep_takes_the_wrapper_inside_the_kernel(monkeypatch):
+    cfg, gp, vp, ais, Xs, gls = _setup(M=32)
+    tgp, tvp, tais = _to_torch(gp, vp, ais)
+    calls = []
+    real = tis.viqr_acq
+    monkeypatch.setattr(tis, "viqr_acq",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    tis.sweep_is_acquisition(TGPConfig(D=D, user_noise=1), "viqr",
+                             torch.tensor(Xs), tvp, tgp, _tstate(gls), tais)
+    assert calls == [1]
 
 
 @pytest.mark.cuda

@@ -3,6 +3,8 @@ more acquired point it re-trains the GP from warm sampler chains and
 re-fits the VP, with the behavioural checks of `tests/test_quick_update.py`.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -10,8 +12,9 @@ import torch
 from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch.elbo import gplogjoint
 from vbmc_tpu_torch.function_logger import FunctionLogger
-from vbmc_tpu_torch.gp.config import GPConfig
+from vbmc_tpu_torch.gp.config import FIXED_CENTER_MEANFUNS, GPConfig
 from vbmc_tpu_torch.gp.fit import TrainOptions, train_gp
+from vbmc_tpu_torch.gp.means import fix_center_from_data
 from vbmc_tpu_torch.quick_update import QuickUpdater
 from vbmc_tpu_torch.transforms import create_trinfo
 from vbmc_tpu_torch.vp import make_vp
@@ -21,7 +24,7 @@ torch.set_num_threads(1)
 D = 2
 
 
-def _setup(seed=42, n0=20, ns=4):
+def _setup(seed=42, n0=20, ns=4, **cfg_kw):
     rng = np.random.default_rng(seed)
     sd = np.array([1.0, 0.7])
     ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D)
@@ -33,7 +36,11 @@ def _setup(seed=42, n0=20, ns=4):
     logger = FunctionLogger(noisy, D, ti, uncertainty_level=2)
     for _ in range(n0):
         logger.evaluate(rng.uniform(-2, 2, D))
-    cfg = GPConfig(D=D, user_noise=1)
+    cfg = GPConfig(D=D, user_noise=1, **cfg_kw)
+    if cfg.meanfun in FIXED_CENTER_MEANFUNS:
+        X, y, _ = logger.training_data()
+        cfg = dataclasses.replace(cfg,
+                                  fix_center=fix_center_from_data(X, y))
     opts = VBMCOptions(display="off").resolve(D)
     topts = TrainOptions(ns_samples=ns, ninit=64, nopts=1, thin=2,
                          n_chains=2, lbfgs_iters=20)
@@ -97,3 +104,29 @@ def test_quick_updater_vp_only_keeps_hyperparameters():
     torch.testing.assert_close(gp2.hyp, gp.hyp, rtol=0, atol=0)
     assert int(gp2.mask.sum()) == logger.n_train
     assert np.isclose(float(vp2.w.sum()), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(meanfun=8), dict(meanfun=12), dict(intmean=1),
+    dict(outwarp=1), dict(meanfun=14, outwarp=3, intmean=2)],
+    ids=["negquadse", "negquadfix", "intmean", "outwarp", "all-three"])
+def test_quick_updater_with_other_gp_families(cfg_kw):
+    """The per-point update assembles its prior and bounds through
+    `assemble_hyp_prior`, so the mean families, the integrated mean and the
+    output warp's hyperparameters pass through it: the retrained GP holds
+    the grown set and its extras, and the refit VP stays valid."""
+    cfg, opts, topts, logger, gp, vp = _setup(**cfg_kw)
+    topts = dataclasses.replace(topts, outwarp_delta=opts.out_warp_thresh_base,
+                                outwarp_thresh_base=opts.out_warp_thresh_base)
+    qu = _updater(cfg, opts, topts, do_gp=True, do_vp=True)
+    logger.evaluate(np.array([0.3, -0.2]))
+    gp2, vp2, gls = qu(torch.Generator().manual_seed(5), logger, gp, vp)
+    assert gp2.hyp.shape[1] == cfg.nhyp
+    assert int(gp2.mask.sum()) == logger.n_train
+    assert bool(torch.isfinite(gp2.alpha).all())
+    assert (gp2.betabar is not None) == (cfg.nint > 0)
+    if cfg.nint > 0:
+        assert gp2.betabar.shape == (gp2.hyp.shape[0], cfg.nint)
+    assert bool(torch.isfinite(gls).all()) and bool((gls > 0).all())
+    assert np.isclose(float(vp2.w.sum()), 1.0, atol=1e-5)
+    assert bool(torch.isfinite(vp2.mu).all()) and bool((vp2.sigma > 0).all())

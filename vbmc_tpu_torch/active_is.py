@@ -3,8 +3,8 @@ noisy targets (cf. `vbmc_tpu/active_is.py`, `acq/acqviqr_vbmc.m`,
 `acq/acqimiqr_vbmc.m`, `private/activeimportancesampling_vbmc.m`): the
 importance-sample set, its fESS-gated independent Metropolis-Hastings
 refresh, the VIQR / IMIQR evaluation, and the 2^13-candidate sweep (the
-CUDA kernel on CUDA tensors). The kernel-integral cross-covariance of
-"eig" is ROADMAP Queue 1, slice 3."""
+CUDA kernel on CUDA tensors); and the kernel-integral cross-covariance of
+"eig" (cf. `misc/intkernel.m`)."""
 
 from __future__ import annotations
 
@@ -13,15 +13,36 @@ import math
 
 import torch
 
+from vbmc_tpu_torch import elbo
 from vbmc_tpu_torch.acquisitions import (AcqState, _bound_rejection,
                                          _nearest_noise)
 from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.gp import GP
 from vbmc_tpu_torch.gp.kernels import kernel_cross
 from vbmc_tpu_torch.gp.predict import gp_predict_full
-from vbmc_tpu_torch.kernels import (_U_IQR, _log_sinh, viqr_acq,
-                                    viqr_acq_reference)
+from vbmc_tpu_torch.kernels import (_U_IQR, _log_sinh, kernel_supports,
+                                    viqr_acq, viqr_acq_reference)
 from vbmc_tpu_torch.vp import VariationalPosterior, vp_log_pdf_trans, vp_rnd
+
+
+def int_kernel(cfg: GPConfig, gp: GP, vp: VariationalPosterior,
+               Xs: torch.Tensor) -> torch.Tensor:
+    """Posterior cross-covariance Cov(f(x_m), int q f) per hyperparameter
+    sample, E_q[k(x_m, .)] - k(x_m, X) B^-1 E_q[k(X, .)]
+    (`intkernel.m:55-80`): (S, M)."""
+    mu, sigma, lam = vp.mu[None], vp.sigma[None], vp.lam[None]
+    wk = vp.w * vp.kmask.to(vp.w.dtype)
+    z = elbo._z_matrix(cfg, gp, mu, sigma, lam)[0][0]           # (S, K, N)
+    zbar = torch.einsum("k,skn->sn", wk, z)
+    # E_q[k(x_m, .)]: the same closed form with the candidates as X
+    at_cand = dataclasses.replace(
+        gp, X=Xs, mask=torch.ones(Xs.shape[0], dtype=torch.bool,
+                                  device=Xs.device))
+    z_cand = elbo._z_matrix(cfg, at_cand, mu, sigma, lam)[0][0]  # (S, K, M)
+    Ez = torch.einsum("k,skm->sm", wk, z_cand)
+    ks = kernel_cross(cfg, gp.hyp, gp.X, Xs) \
+        * gp.mask.to(Xs.dtype)[None, :, None]                   # (S, N, M)
+    return Ez - ((gp.Binv @ zbar[..., None]).transpose(-1, -2) @ ks)[:, 0]
 
 
 @dataclasses.dataclass
@@ -169,9 +190,14 @@ def evaluate_is_acquisition(cfg: GPConfig, name: str, Xs: torch.Tensor,
 def sweep_is_acquisition(cfg: GPConfig, name: str, Xs: torch.Tensor,
                          vp: VariationalPosterior, gp: GP, state: AcqState,
                          ais: ISState) -> torch.Tensor:
-    """The 2^13-candidate VIQR / IMIQR sweep: the nearest-noise lookup in
-    plain PyTorch, the `viqr_acq` wrapper (the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors), then the hard-bound rejection."""
+    """The 2^13-candidate VIQR / IMIQR sweep. Where the GP's configuration
+    is one that `kernel_supports`: the nearest-noise lookup in plain
+    PyTorch, the `viqr_acq` wrapper (the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors), then the hard-bound rejection. Any other
+    configuration goes to `evaluate_is_acquisition`; the choice is made
+    here, before anything is launched, and a failed launch raises."""
+    if not kernel_supports(cfg):
+        return evaluate_is_acquisition(cfg, name, Xs, vp, gp, state, ais)
     acq = viqr_acq(cfg, Xs, gp, ais, _nearest_noise(cfg, gp, Xs, state),
                    state.tol_var, state.regularize)
     return _bound_rejection(vp.trinfo, Xs, state.lb_eps_orig,

@@ -1,9 +1,17 @@
 """Active sampling (cf. `vbmc_tpu/active_sample.py`,
 `private/activesample_vbmc.m`, `misc/initdesign_vbmc.m`): initial design,
-candidate generation, the acquisition sweep (a CUDA kernel on the card:
-prospective for noiseless targets, VIQR / IMIQR with an importance-sampling
-set for noisy ones), CMA-ES refinement, target evaluation, and the GP
-refresh or, on noisy targets, the per-point full update."""
+candidate generation, the acquisition sweep (a CUDA kernel on the card
+where the configuration is one the kernel computes: prospective for
+noiseless targets, VIQR / IMIQR with an importance-sampling set for noisy
+ones), CMA-ES refinement, target evaluation, and the GP refresh or, on
+noisy targets, the per-point full update.
+
+A point is proposed on one of two paths, as in the reference. The default
+search composition goes through `_propose_point` / `_propose_point_is`.
+A search cache, HPD draws, another optimiser, integer variables or
+repeated observations need steps on the host between the sweep and the
+evaluation, and go through `get_search_points` and the host path of
+`active_sample`."""
 
 from __future__ import annotations
 
@@ -13,8 +21,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vbmc_tpu_torch import elbo
 from vbmc_tpu_torch.gp.config import GPConfig
+from vbmc_tpu_torch.gp.fit import get_hpd
 from vbmc_tpu_torch.gp.gp import GP, build_gp
+from vbmc_tpu_torch.gp.predict import gp_predict
 from vbmc_tpu_torch.function_logger import FunctionLogger
 from vbmc_tpu_torch.vp import VariationalPosterior, vp_rnd, vp_moments
 from vbmc_tpu_torch.acquisitions import (ACQ_INFO, evaluate_acquisition,
@@ -23,7 +34,9 @@ from vbmc_tpu_torch.active_is import (build_is_state_core,
                                       evaluate_is_acquisition,
                                       sweep_is_acquisition)
 from vbmc_tpu_torch.samplers.cmaes import cmaes_minimize
+from vbmc_tpu_torch.transforms import real_to_int
 from vbmc_tpu_torch.vpoptim import fractional_ess
+from vbmc_tpu_torch.utils.kmeans import kmeans
 from vbmc_tpu_torch.utils.math import bucket_n, pad_to, to_np
 
 
@@ -60,18 +73,36 @@ class SearchBounds:
 def initial_design(gen: torch.Generator, logger: FunctionLogger,
                    n_evals: int, plb, pub,
                    x0_cache: Optional[np.ndarray] = None,
-                   init_design: str = "plausible"):
-    """First batch of evaluations: the starting points plus uniform draws
-    in the plausible box (`initdesign_vbmc.m:10-28`). A starting cache
-    larger than ``n_evals`` (k-means thinning) is not ported."""
+                   init_design: str = "plausible") -> np.ndarray:
+    """First batch of evaluations: the starting points plus random draws
+    (`initdesign_vbmc.m:10-28`), uniform in the plausible box
+    ('plausible') or in a window of a tenth of it around the first
+    starting point ('narrow').
+
+    A starting cache larger than ``n_evals`` is thinned by k-means, one
+    point of each cluster kept (`initdesign_vbmc.m:30-45`); the rest is
+    returned as the search cache that `get_search_points` draws on
+    (`activesample_vbmc.m:545-558`), an array (n_left, D) that may be
+    empty."""
     D = plb.shape[0]
     pts = []
+    leftover = np.zeros((0, D))
     if x0_cache is not None and len(x0_cache):
         Xc = np.asarray(x0_cache, float).reshape(-1, D)
-        if Xc.shape[0] > n_evals:
-            raise NotImplementedError(
-                "a starting cache larger than fun_eval_start (k-means "
-                "thinning) is ROADMAP Queue 1, slice 4")
+        if Xc.shape[0] > n_evals and n_evals > 0:
+            _, assign = kmeans(Xc, n_evals, seed=0)
+            chosen = np.zeros(Xc.shape[0], dtype=bool)
+            for c in range(n_evals):
+                members = np.where(assign == c)[0]
+                if members.size:
+                    chosen[members[0]] = True
+            # top up an underfull selection with unchosen points
+            for j in np.where(~chosen)[0]:
+                if chosen.sum() >= n_evals:
+                    break
+                chosen[j] = True
+            leftover = Xc[~chosen]
+            Xc = Xc[chosen]
         pts.append(Xc)
     n_rand = max(n_evals - sum(p.shape[0] for p in pts), 0)
     if n_rand > 0:
@@ -87,6 +118,81 @@ def initial_design(gen: torch.Generator, logger: FunctionLogger,
             raise ValueError(f"Unknown initial design '{init_design}'.")
     for x in np.concatenate(pts, axis=0)[:n_evals]:
         logger.evaluate(x)
+    return leftover
+
+
+def get_search_points(gen: torch.Generator, n_search: int,
+                      vp: VariationalPosterior, logger: FunctionLogger,
+                      sb: SearchBounds, options,
+                      search_cache: Optional[np.ndarray] = None
+                      ) -> torch.Tensor:
+    """The search set of the host path (`activesample_vbmc.m:545-639`), on
+    the VP's device: points of the search cache, heavy-tailed VP draws,
+    moment-matched Gaussian draws, Gaussian draws matched to HPD parts of
+    the training set, box-uniform draws around the training inputs, and
+    balanced VP draws for the rest; clipped to the search box.
+    (n_search, D)"""
+    D = vp.D
+    dev, dt = vp.mu.device, vp.mu.dtype
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev, dtype=dt)
+
+    def randn(n):
+        return torch.randn((n, D), generator=gen, device=dev, dtype=dt)
+
+    parts = []
+    n_sc = int(round(options.search_cache_frac * n_search))
+    if n_sc > 0 and search_cache is not None and len(search_cache):
+        parts.append(t(search_cache[:n_sc]))
+    n_heavy = int(round(options.heavy_tail_search_frac * n_search))
+    if n_heavy > 0:
+        parts.append(vp_rnd(vp, gen, n_heavy, orig_flag=False, df=3.0))
+    n_mvn = int(round(options.mvn_search_frac * n_search))
+    if n_mvn > 0:
+        mu, cov = vp_moments(vp, orig_flag=False)
+        L = torch.linalg.cholesky(cov + 1e-12 * torch.eye(D, device=dev,
+                                                          dtype=dt))
+        parts.append(mu[None, :] + randn(n_mvn) @ L.T)
+    n_hpd = int(round(options.hpd_search_frac * n_search))
+    if n_hpd > 0:
+        X, y, _ = logger.training_data()
+        hpd_min, hpd_max = options.hpd_frac / 8, options.hpd_frac
+        u = torch.rand(4, generator=gen, device=dev,
+                       dtype=torch.float64).cpu().numpy()
+        fracs = np.sort(np.concatenate([
+            u * (hpd_max - hpd_min) + hpd_min, [hpd_min, hpd_max]]))
+        n_vec = np.diff(np.round(np.linspace(0, n_hpd,
+                                             len(fracs) + 1))).astype(int)
+        for frac, n_i in zip(fracs, n_vec):
+            if n_i == 0:
+                continue
+            X_hpd, _ = get_hpd(X, y, frac)
+            if X_hpd.shape[0] < 2:
+                mu_h = X[np.argmax(y)]
+                cov_h = np.cov(X.T) + 1e-12 * np.eye(D)
+            else:
+                mu_h = X_hpd.mean(0)
+                cov_h = np.cov(X_hpd.T, bias=True) + 1e-12 * np.eye(D)
+            parts.append(t(mu_h)[None, :]
+                         + randn(int(n_i)) @ t(np.linalg.cholesky(
+                             np.atleast_2d(cov_h))).T)
+    n_box = int(round(options.box_search_frac * n_search))
+    if n_box > 0:
+        X, _, _ = logger.training_data()
+        diam = X.max(0) - X.min(0)
+        box_lb, box_ub = X.min(0) - 0.5 * diam, X.max(0) + 0.5 * diam
+        if np.all(np.isfinite(sb.lb)) and np.all(np.isfinite(sb.ub)):
+            box_lb = np.maximum(box_lb, sb.lb)
+            box_ub = np.minimum(box_ub, sb.ub)
+        u = torch.rand((n_box, D), generator=gen, device=dev, dtype=dt)
+        parts.append(t(box_lb) + u * t(box_ub - box_lb))
+    n_vp = max(n_search - sum(p.shape[0] for p in parts), 0)
+    if n_vp > 0:
+        parts.append(vp_rnd(vp, gen, n_vp, orig_flag=False,
+                            balance_flag=True))
+    Xs = torch.cat(parts)[:n_search]
+    return torch.minimum(torch.maximum(Xs, t(sb.lb)), t(sb.ub))
 
 
 def _train_box(gp: GP, sb_lb, sb_ub):
@@ -150,14 +256,16 @@ def _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
 
 def _propose_point(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
                    sb_lb, sb_ub, n_search: int, n_heavy: int, n_mvn: int,
-                   n_box: int, max_evals: int, popsize: int):
+                   n_box: int, max_evals: int, popsize: int,
+                   smooth: bool = False):
     """One acquisition step: candidates -> sweep -> argmin -> CMA-ES."""
     Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search, n_heavy,
                                 n_mvn, n_box)
-    acq = sweep_acquisition(cfg, name, Xs, vp, gp, state)
+    acq = sweep_acquisition(cfg, name, Xs, vp, gp, state, smooth=smooth)
 
     def f_batch(xs):
-        return evaluate_acquisition(cfg, name, xs, vp, gp, state)
+        return evaluate_acquisition(cfg, name, xs, vp, gp, state,
+                                    smooth=smooth)
 
     return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
                               max_evals, popsize)
@@ -220,23 +328,14 @@ def _hard_bound_eps(logger: FunctionLogger, options):
             np.where(both, ub - width * options.tol_bound_x, np.inf))
 
 
-def check_search_options(options):
-    """The ported search is the default composition with CMA-ES refinement
-    from the VP moments; anything else raises."""
-    if (options.search_cache_frac != 0 or options.hpd_search_frac != 0
-            or options.search_optimizer != "cmaes"
-            or not options.search_cmaes_vp_init):
-        raise NotImplementedError(
-            "only the default search set with CMA-ES refinement from the VP "
-            "moments is ported (search_cache_frac, hpd_search_frac, "
-            "search_optimizer, search_cmaes_vp_init: ROADMAP Queue 1, "
-            "slice 3)")
-    if len(options.integer_vars):
-        raise NotImplementedError("integer_vars is ROADMAP Queue 1, slice 3")
-    if options.uncertainty_handling and options.max_repeated_observations > 0:
-        raise NotImplementedError(
-            "repeated observations of noisy targets "
-            "(max_repeated_observations > 0) are ROADMAP Queue 1, slice 3")
+def _var_log_joint(cfg: GPConfig, gp: GP, vp: VariationalPosterior):
+    """Variance of the log-joint integral per hyperparameter sample (S,),
+    which "eig" needs anew as the GP changes
+    (`activesample_vbmc.m:152-157`)."""
+    J = elbo.gplogjoint(cfg, gp, vp.mu[None], vp.sigma[None], vp.lam[None],
+                        vp.w[None], vp.kmask, compute_var=1)[4][0]
+    wk = vp.w * vp.kmask.to(vp.w.dtype)
+    return torch.einsum("j,sjk,k->s", wk, J, wk).clamp_min(1e-12)
 
 
 def active_sample(gen: torch.Generator, cfg: GPConfig,
@@ -244,7 +343,8 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                   vp: VariationalPosterior, gp: GP, sb: SearchBounds,
                   options, *, acq_name: str, tol_gp_var: float,
                   full_update: bool = False, quick_updater=None,
-                  fess_thresh: float = 1.0):
+                  fess_thresh: float = 1.0, optim_state=None,
+                  search_cache: Optional[np.ndarray] = None):
     """Acquire ``n_points`` new evaluations; returns (gp, vp), the GP
     refreshed on the enlarged training set.
 
@@ -253,12 +353,33 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
     ``quick_updater(gen, logger, gp, vp) -> (gp, vp, gls)`` re-trains the GP
     hyperparameters and re-fits the VP after each acquired point, gated on
     the fractional effective sample size when ``fess_thresh`` < 1;
-    otherwise the GP keeps its hyperparameters."""
-    check_search_options(options)
+    otherwise the GP keeps its hyperparameters. ``optim_state`` carries the
+    streak of repeated observations of a noisy target; ``search_cache``
+    (transformed space) feeds the search set when
+    ``options.search_cache_frac`` > 0."""
+    D = vp.D
     dt, dev = gp.X.dtype, gp.X.device
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev, dtype=dt)
+
+    use_is = ACQ_INFO[acq_name]["importance_sampling"]
+    # Integer dimensions are rounded through the transform
+    # (`activesample_vbmc.m:219,248`, `misc/real2int_vbmc.m`).
+    integer_mask = np.zeros(D, dtype=bool)
+    if len(options.integer_vars):
+        integer_mask[np.asarray(options.integer_vars, dtype=int)] = True
+    has_int = bool(integer_mask.any())
+    repeat_obs = (logger.noise_flag and options.max_repeated_observations > 0
+                  and optim_state is not None)
+    # The default composition with CMA-ES from the VP's moments goes
+    # through _propose_point(_is); rounding and the repeated-observation
+    # check need steps between the sweep and the evaluation.
+    fused_ok = (options.search_cache_frac == 0
+                and options.hpd_search_frac == 0
+                and options.search_optimizer == "cmaes"
+                and options.search_cmaes_vp_init
+                and not has_int and not repeat_obs)
 
     lb_eps, ub_eps = _hard_bound_eps(logger, options)
     ns = options.ns_search
@@ -268,29 +389,132 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                   n_box=int(round(options.box_search_frac * ns)),
                   max_evals=options.search_max_fun_evals,
                   popsize=options.search_cmaes_popsize)
-    if ACQ_INFO[acq_name]["importance_sampling"]:
-        propose = _propose_point_is
-        common.update(
-            n_is_vp=int(options.active_importance_sampling_vp_samples),
-            n_is_box=int(options.active_importance_sampling_box_samples),
-            n_is_mcmc=int(options.active_importance_sampling_mcmc_samples),
-            mh_steps=int(options.active_importance_sampling_mh_steps),
-            fess_thresh=float(options.active_importance_sampling_fess_thresh))
-    else:
-        propose = _propose_point
+    is_sizes = dict(
+        n_is_vp=int(options.active_importance_sampling_vp_samples),
+        n_is_box=int(options.active_importance_sampling_box_samples),
+        n_is_mcmc=int(options.active_importance_sampling_mcmc_samples),
+        mh_steps=int(options.active_importance_sampling_mh_steps),
+        fess_thresh=float(options.active_importance_sampling_fess_thresh))
+    # Bandwidth smoothing (`acqwrapper_vbmc.m:12-15`): the orchestrator
+    # sets delta when options.bandwidth > 0.
+    delta_sm = getattr(options, "delta_smoothing", None)
+    smooth = delta_sm is not None
+    delta = t(delta_sm) if smooth else None
     sb_lb, sb_ub = t(sb.lb), t(sb.ub)
     gls = t(_geomean_length_scale(cfg, gp))
+    insigma_vp = None      # the VP's scales, until the VP changes
+
     for i in range(n_points):
-        state = AcqState(ymax=t(logger.ymax), tol_var=t(tol_gp_var),
-                         lb_eps_orig=t(lb_eps), ub_eps_orig=t(ub_eps),
-                         regularize=True, gp_length_scale=gls)
         with torch.no_grad():
-            x_new, _ = propose(cfg, acq_name, gen, vp, gp, state, sb_lb,
-                               sb_ub, **common)
-        x_best = to_np(x_new)
-        logger.evaluate(x_best)
+            state = AcqState(
+                ymax=t(logger.ymax), tol_var=t(tol_gp_var),
+                lb_eps_orig=t(lb_eps), ub_eps_orig=t(ub_eps),
+                regularize=True, gp_length_scale=gls,
+                var_log_joint=(_var_log_joint(cfg, gp, vp)
+                               if acq_name == "eig" else None),
+                delta=delta)
+            if fused_ok and use_is:
+                x_new, _ = _propose_point_is(cfg, acq_name, gen, vp, gp,
+                                             state, sb_lb, sb_ub, **is_sizes,
+                                             **common)
+                x_best = to_np(x_new)
+            elif fused_ok:
+                x_new, _ = _propose_point(cfg, acq_name, gen, vp, gp, state,
+                                          sb_lb, sb_ub, smooth=smooth,
+                                          **common)
+                x_best = to_np(x_new)
+            else:
+                # The importance-sampling set is rebuilt for every point:
+                # the GP changes as evaluations accrue
+                # (`activesample_vbmc.m:208-211`).
+                ais = build_is_state_core(
+                    gen, cfg, acq_name, vp, gp, is_sizes["n_is_vp"],
+                    is_sizes["n_is_box"], is_sizes["n_is_mcmc"],
+                    mh_steps=is_sizes["mh_steps"],
+                    fess_thresh=is_sizes["fess_thresh"]) if use_is else None
+
+                def f_batch(xs, st=state):
+                    if ais is not None:
+                        return evaluate_is_acquisition(cfg, acq_name, xs, vp,
+                                                       gp, st, ais)
+                    return evaluate_acquisition(cfg, acq_name, xs, vp, gp, st,
+                                                smooth=smooth)
+
+                Xs = real_to_int(logger.trinfo, get_search_points(
+                    gen, ns, vp, logger, sb, options,
+                    search_cache=search_cache), integer_mask)
+                if ais is not None:
+                    acq = sweep_is_acquisition(cfg, acq_name, Xs, vp, gp,
+                                               state, ais)
+                else:
+                    acq = sweep_acquisition(cfg, acq_name, Xs, vp, gp, state,
+                                            smooth=smooth)
+                acq = torch.where(torch.isfinite(acq), acq, torch.inf)
+                best = torch.argmin(acq)
+                x_best_t, f_best = Xs[best], float(acq[best])
+
+                # CMA-ES refinement of the winner (`activesample:246-330`).
+                if options.search_optimizer == "cmaes":
+                    if options.search_cmaes_vp_init:
+                        if insigma_vp is None:
+                            _, cov = vp_moments(vp, orig_flag=False)
+                            insigma_vp = torch.sqrt(
+                                torch.diagonal(cov).clamp_min(1e-12))
+                        insigma = insigma_vp
+                    else:
+                        X_t, y_t, _ = logger.training_data()
+                        X_hpd, _ = get_hpd(X_t, y_t, options.hpd_frac)
+                        insigma = t(np.maximum(X_hpd.std(0), 1e-6))
+                    res = cmaes_minimize(
+                        gen, f_batch, x_best_t, insigma,
+                        torch.minimum(x_best_t, sb_lb),
+                        torch.maximum(x_best_t, sb_ub),
+                        max_evals=options.search_max_fun_evals,
+                        popsize=options.search_cmaes_popsize)
+                    x_ref, f_ref = res.x_best, float(res.f_best)
+                    if has_int:
+                        # rounding may change the value: evaluate there
+                        x_ref = real_to_int(logger.trinfo, x_ref[None, :],
+                                            integer_mask)[0]
+                        f_ref = float(f_batch(x_ref[None, :])[0])
+                    if f_ref < f_best:
+                        x_best_t, f_best = x_ref, f_ref
+                x_best = to_np(x_best_t)
+
+                # Repeated observations of a noisy target
+                # (`activesample_vbmc.m:334-365`): when acquiring at a point
+                # already observed is better, at a discount, than the new
+                # candidate, measure that point again; the logger merges
+                # the duplicates by their precisions.
+                if repeat_obs:
+                    if (optim_state.repeated_obs_streak
+                            >= options.max_repeated_observations):
+                        optim_state.repeated_obs_streak = 0
+                    else:
+                        X_t, _, _ = logger.training_data()
+                        acq_t = f_batch(
+                            t(pad_to(X_t, bucket_n(X_t.shape[0]))),
+                            dataclasses.replace(state, regularize=False))
+                        acq_t = to_np(acq_t)[:X_t.shape[0]]
+                        acq_t = np.where(np.isfinite(acq_t), acq_t, np.inf)
+                        idx_t = int(np.argmin(acq_t))
+                        if acq_t[idx_t] < options.repeated_acq_discount \
+                                * f_best:
+                            x_best = X_t[idx_t]
+                            optim_state.repeated_obs_streak += 1
+                        else:
+                            optim_state.repeated_obs_streak = 0
+
+        y_new, _ = logger.evaluate(x_best)
         if sb.expand(x_best):
             sb_lb, sb_ub = t(sb.lb), t(sb.ub)
+        # The acquisition's debug record (`activesample_vbmc.m:403-409`).
+        if optim_state is not None and getattr(options, "acq_debug", False):
+            with torch.no_grad():
+                fbar_q, vtot_q, _, _ = gp_predict(cfg, gp, t(x_best)[None, :])
+            optim_state.acqtable.append(
+                (acq_name, float(y_new), float(fbar_q[0]),
+                 float(np.sqrt(max(float(vtot_q[0]), 0.0)))))
         if i == n_points - 1:
             break
         if full_update and quick_updater is not None:
@@ -306,6 +530,7 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                     gp = gp_tmp
             if do_update:
                 gp, vp, gls = quick_updater(gen, logger, gp, vp)
+                insigma_vp = None
         else:
             gp = gp_reupdate(cfg, gp, logger)
     return gp_reupdate(cfg, gp, logger), vp

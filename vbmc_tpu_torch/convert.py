@@ -46,6 +46,8 @@ def vp_from_dict(d, device="cpu", dtype=torch.float64) -> VariationalPosterior:
 
 def gp_from_dict(d, device="cpu", dtype=torch.float64) -> GP:
     f = _fields(d)
+    extras = {k: _t(f[k], device, dtype)
+              for k in ("betabar", "HBinv", "Ainv") if f.get(k) is not None}
     return GP(X=_t(f["X"], device, dtype), y=_t(f["y"], device, dtype),
               s2=_t(f["s2"], device, dtype),
               mask=torch.as_tensor(np.array(f["mask"], bool), device=device),
@@ -54,7 +56,7 @@ def gp_from_dict(d, device="cpu", dtype=torch.float64) -> GP:
                                        device=device),
               alpha=_t(f["alpha"], device, dtype),
               L=_t(f["L"], device, dtype), Binv=_t(f["Binv"], device, dtype),
-              sn2=_t(f["sn2"], device, dtype))
+              sn2=_t(f["sn2"], device, dtype), **extras)
 
 
 def hyp_prior_from_dict(d, device="cpu", dtype=torch.float64) -> HypPrior:

@@ -1,7 +1,7 @@
 """The Bayesian-quadrature ELBO (cf. `vbmc_tpu/elbo.py`,
 `misc/gplogjoint.m`, `ent/entlb_vbmc.m`, `ent/entmc_vbmc.m`,
-`misc/negelcbo_vbmc.m`), for the SE-ard covariance with the zero, const
-and negquad means.
+`misc/negelcbo_vbmc.m`), for the SE-ard covariance with every mean family
+and the integrated mean.
 
 Every function is batched over a leading axis B of variational parameter
 sets (the reference vmaps over candidates and starts): mu (B, K, D),
@@ -19,11 +19,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from vbmc_tpu_torch.gp.config import (GPConfig, MEAN_CONST,
-                                      MEAN_NEGQUAD)
+from vbmc_tpu_torch.gp.config import (
+    GPConfig, COV_SEARD, MEAN_ZERO, MEAN_CONST, MEAN_NEGQUAD, MEAN_SE,
+    MEAN_NEGQUADSE, MEAN_NEGQUADONLY, MEAN_NEGQUADLINONLY,
+    MEAN_NEGQUADFIXISO, MEAN_NEGQUADFIX, MEAN_NEGQUADSEFIX,
+    MEAN_NEGQUADFIXONLY, MEAN_NEGQUADMIX, INTMEAN_LINEAR, INTMEAN_QUAD,
+    INTMEAN_FULLQUAD)
 from vbmc_tpu_torch.gp.gp import GP
-from vbmc_tpu_torch.gp.kernels import check_covfun
-from vbmc_tpu_torch.gp.means import check_meanfun
+from vbmc_tpu_torch.gp.means import _center
 from vbmc_tpu_torch.utils.math import to_np
 from vbmc_tpu_torch.vp import masked_softmax
 
@@ -88,28 +91,133 @@ def unpack_theta(flags: VPFlags, theta, K: int, D: int, mu0, sigma0, lam0,
 # Expected log joint under the GP (Bayesian quadrature)
 # ----------------------------------------------------------------------
 
-def _negquad_nu(cfg: GPConfig, hyp_mean, mu, sigma, lam):
-    """E_q[-1/2 sum ((x - xm)/omega)^2] per (B, S, K) (`gplogjoint.m:171`)."""
-    D = cfg.D
-    xm = hyp_mean[:, 1:D + 1][None, :, None, :]                 # (1,S,1,D)
-    omega2 = torch.exp(2.0 * hyp_mean[:, D + 1:2 * D + 1])[None, :, None, :]
-    s2lam2 = (sigma[:, :, None] ** 2) * (lam[:, None, :] ** 2)  # (B, K, D)
+def _s2lam2(sigma, lam):
+    """The components' diagonal covariances sigma_k^2 lam_d^2: (B, K, D)."""
+    return (sigma[:, :, None] ** 2) * (lam[:, None, :] ** 2)
+
+
+def _negquad_nu_at(xm, omega2, mu, sigma, lam):
+    """E_q[-1/2 sum ((x - xm)/omega)^2] per (B, S, K), in closed form
+    (`gplogjoint.m:171-174`). xm, omega2: (S, D)."""
+    xm = xm[None, :, None, :]                                   # (1,S,1,D)
     m = mu[:, None]
-    quad = (m ** 2 + s2lam2[:, None] - 2.0 * m * xm + xm ** 2) / omega2
+    quad = (m ** 2 + _s2lam2(sigma, lam)[:, None] - 2.0 * m * xm
+            + xm ** 2) / omega2[None, :, None, :]
     return -0.5 * quad.sum(-1)
+
+
+def _se_bump_nu(xm, omega2, h, mu, sigma, lam):
+    """E_q[h exp(-1/2 sum ((x - xm)/omega)^2)] per (B, S, K)
+    (`gplogjoint.m:175-179`). xm, omega2: (S, D); h: (S,)."""
+    o2 = omega2[None, :, None, :]
+    tau2 = _s2lam2(sigma, lam)[:, None] + o2                    # (B,S,K,D)
+    s2 = (mu[:, None] - xm[None, :, None, :]) ** 2 / tau2
+    lognf = 0.5 * (torch.log(o2) - torch.log(tau2)).sum(-1)
+    return h[None, :, None] * torch.exp(lognf - 0.5 * s2.sum(-1))
+
+
+def _negquadmix_nu(hyp_mean, D, mu, sigma, lam):
+    """E_q of the quadratic mixture less its constant m0 + hm
+    (`gplogjoint.m:181-195`): the window term needs the first and second
+    moments of q_k tilted by the Gaussian window. (B, S, K)"""
+    xm = hyp_mean[:, 1:D + 1]
+    omega2 = torch.exp(2.0 * hyp_mean[:, D + 1:2 * D + 1])
+    hm = hyp_mean[:, 2 * D + 1][None, :, None]
+    rho2 = torch.exp(2.0 * hyp_mean[:, 2 * D + 2])
+    beta2 = torch.exp(2.0 * hyp_mean[:, 2 * D + 3])[None, :, None]
+    s2lam2 = _s2lam2(sigma, lam)[:, None]                       # (B,1,K,D)
+    nu1 = _negquad_nu_at(xm, omega2, mu, sigma, lam) / beta2
+    # E[window] = prod_d sqrt(rho2 w_d^2 / t2_d) exp(-(mu - xm)^2 / (2 t2))
+    ro2 = (rho2[:, None] * omega2)[None, :, None, :]            # (1,S,1,D)
+    xm_, o2_ = xm[None, :, None, :], omega2[None, :, None, :]
+    t2 = s2lam2 + ro2
+    dmu = mu[:, None] - xm_
+    atil = torch.exp(0.5 * (torch.log(ro2) - torch.log(t2)).sum(-1)
+                     - 0.5 * (dmu ** 2 / t2).sum(-1))
+    # q_k times the window is Gaussian with variance s2lam2 rho2 w^2 / t2
+    # and mean (xm s2lam2 + mu rho2 w^2) / t2
+    mutil = (xm_ * s2lam2 + mu[:, None] * ro2) / t2
+    vartil = s2lam2 * ro2 / t2
+    qtil = ((vartil + (mutil - xm_) ** 2) / o2_).sum(-1)
+    return nu1 - hm * atil - 0.5 * (1.0 - 1.0 / beta2) * atil * qtil
+
+
+def _mean_nu(cfg: GPConfig, hyp_mean, mu, sigma, lam):
+    """E_{q_k}[m(x)] for every mean family: (B, S, K), or 0.0 for the zero
+    mean."""
+    D = cfg.D
+    mf = cfg.meanfun
+    if mf == MEAN_ZERO:
+        return 0.0
+    m0 = hyp_mean[:, 0][None, :, None]
+    if mf == MEAN_CONST:
+        return m0
+    if mf in (MEAN_NEGQUAD, MEAN_SE, MEAN_NEGQUADSE):
+        xm = hyp_mean[:, 1:D + 1]
+        omega2 = torch.exp(2.0 * hyp_mean[:, D + 1:2 * D + 1])
+        if mf == MEAN_SE:
+            return m0 + _se_bump_nu(xm, omega2,
+                                    torch.exp(hyp_mean[:, 2 * D + 1]),
+                                    mu, sigma, lam)
+        nu = m0 + _negquad_nu_at(xm, omega2, mu, sigma, lam)
+        if mf == MEAN_NEGQUADSE:      # the bump's height is raw
+            nu = nu + _se_bump_nu(
+                hyp_mean[:, 2 * D + 1:3 * D + 1],
+                torch.exp(2.0 * hyp_mean[:, 3 * D + 1:4 * D + 1]),
+                hyp_mean[:, 4 * D + 1], mu, sigma, lam)
+        return nu
+    if mf == MEAN_NEGQUADONLY:
+        omega2 = torch.exp(2.0 * hyp_mean[:, :D])
+        return _negquad_nu_at(torch.zeros_like(omega2), omega2, mu, sigma,
+                              lam)
+    if mf == MEAN_NEGQUADLINONLY:
+        return _negquad_nu_at(hyp_mean[:, :D],
+                              torch.exp(2.0 * hyp_mean[:, D:2 * D]), mu,
+                              sigma, lam)
+    if mf in (MEAN_NEGQUADFIXISO, MEAN_NEGQUADFIX, MEAN_NEGQUADSEFIX,
+              MEAN_NEGQUADFIXONLY):
+        # the centre is the fit's constant cfg.fix_center
+        # (`gplogjoint.m:112-121,134-138`)
+        S = hyp_mean.shape[0]
+        xm = _center(cfg, mu).expand(S, D)
+        if mf == MEAN_NEGQUADFIXONLY:
+            return _negquad_nu_at(xm, torch.exp(2.0 * hyp_mean[:, :D]), mu,
+                                  sigma, lam)
+        if mf == MEAN_NEGQUADFIXISO:
+            omega2 = torch.exp(2.0 * hyp_mean[:, 1:2]).expand(S, D)
+        else:
+            omega2 = torch.exp(2.0 * hyp_mean[:, 1:D + 1])
+        nu = m0 + _negquad_nu_at(xm, omega2, mu, sigma, lam)
+        if mf == MEAN_NEGQUADSEFIX:
+            # the constrained bump: omega_se = alpha omega, and the offset
+            # -h_se folded into m0 (`gplogjoint.m:134-138`)
+            alpha2 = torch.exp(2.0 * hyp_mean[:, D + 1:D + 2])
+            h_se = torch.exp(hyp_mean[:, D + 2])
+            nu = (nu - h_se[None, :, None]
+                  + _se_bump_nu(xm, alpha2 * omega2, h_se, mu, sigma, lam))
+        return nu
+    if mf == MEAN_NEGQUADMIX:
+        return (m0 + hyp_mean[:, 2 * D + 1][None, :, None]
+                + _negquadmix_nu(hyp_mean, D, mu, sigma, lam))
+    raise ValueError("gplogjoint supports zero/const/negquad/se/"
+                     "negquadse/negquad(fix/fixiso/sefix/fixonly)/"
+                     "negquadonly/negquadlinonly/negquadmix means")
 
 
 def _z_matrix(cfg: GPConfig, gp: GP, mu, sigma, lam):
     """z_{b,s,k,n} = E_{q_k}[k(x, X_n)] for SE-ard (`gplogjoint.m:164-168`),
-    masked over padded rows. Returns (z, lnnf (B, S, K))."""
-    check_covfun(cfg)
+    masked over padded rows. Returns (z, lnnf (B, S, K), tau2 (B, S, K, D))."""
+    if cfg.covfun != COV_SEARD:
+        raise ValueError(
+            "the Bayesian-quadrature ELBO requires the SE-ard kernel "
+            "(covfun=1); seiso/Matérn are gplite-library families only, "
+            "as in the reference (`gplogjoint.m` hard-codes SE-ard)")
     D = cfg.D
     log_ell = gp.hyp[:, :D]                                    # (S, D)
     ell2 = torch.exp(2.0 * log_ell)
     ln_sf2 = 2.0 * gp.hyp[:, D]
     sum_lnell = log_ell.sum(-1)
-    s2lam2 = (sigma[:, :, None] ** 2) * (lam[:, None, :] ** 2)  # (B, K, D)
-    tau2 = s2lam2[:, None] + ell2[None, :, None, :]             # (B,S,K,D)
+    tau2 = _s2lam2(sigma, lam)[:, None] + ell2[None, :, None, :]  # (B,S,K,D)
     lnnf = (ln_sf2 + sum_lnell)[None, :, None] - 0.5 * torch.log(tau2).sum(-1)
     inv_tau2 = 1.0 / tau2
     X = gp.X
@@ -118,21 +226,42 @@ def _z_matrix(cfg: GPConfig, gp: GP, mu, sigma, lam):
     x2 = torch.einsum("bskd,nd->bskn", inv_tau2, X * X)
     quad = mu2_term[..., None] - 2.0 * cross + x2
     z = torch.exp(lnnf[..., None] - 0.5 * quad)
-    return z * gp.mask.to(z.dtype), lnnf
+    return z * gp.mask.to(z.dtype), lnnf, tau2
+
+
+def _int_basis_expect(cfg: GPConfig, mu, sigma, lam):
+    """E_{q_k}[h(x)] for the integrated mean's polynomial basis under each
+    component N(mu_k, sigma_k^2 Lambda^2), in closed form because the
+    component's covariance is diagonal: (B, K, Nb). (`misc/gplogjoint.m`
+    has no integrated mean; this follows the JAX package.)"""
+    cols = [mu.new_ones(mu.shape[:2] + (1,))]
+    if cfg.intmean >= INTMEAN_LINEAR:
+        cols.append(mu)
+    if cfg.intmean >= INTMEAN_QUAD:
+        cols.append(mu * mu + _s2lam2(sigma, lam))
+    if cfg.intmean >= INTMEAN_FULLQUAD:
+        iu, ju = np.triu_indices(cfg.D, k=1)
+        cols.append(mu[..., iu] * mu[..., ju])
+    return torch.cat(cols, dim=-1)
+
+
+def _intmean_r(cfg: GPConfig, gp: GP, mu, sigma, lam, z):
+    """The quadrature's residual basis r_sk = E_k[h] - H B^-1 E_k[k(., X)],
+    the R(x) of `gplite_pred.m:89-94` under the component's expectation:
+    (B, S, K, Nb)."""
+    hbar = _int_basis_expect(cfg, mu, sigma, lam)               # (B, K, Nb)
+    return hbar[:, None] - torch.einsum("sbn,cskn->cskb", gp.HBinv, z)
 
 
 def gplogjoint_I(cfg: GPConfig, gp: GP, mu, sigma, lam, z=None):
     """Per-sample, per-component expected log joint I (B, S, K)."""
-    check_meanfun(cfg)
     if z is None:
-        z, _ = _z_matrix(cfg, gp, mu, sigma, lam)
-    I = torch.einsum("bskn,sn->bsk", z, gp.alpha)
-    hyp_mean = gp.hyp[:, cfg.sl_mean]
-    if cfg.meanfun == MEAN_CONST:
-        I = I + hyp_mean[:, 0][None, :, None]
-    elif cfg.meanfun == MEAN_NEGQUAD:
-        I = (I + hyp_mean[:, 0][None, :, None]
-             + _negquad_nu(cfg, hyp_mean, mu, sigma, lam))
+        z = _z_matrix(cfg, gp, mu, sigma, lam)[0]
+    I = (torch.einsum("bskn,sn->bsk", z, gp.alpha)
+         + _mean_nu(cfg, gp.hyp[:, cfg.sl_mean], mu, sigma, lam))
+    if cfg.nint > 0:
+        r = _intmean_r(cfg, gp, mu, sigma, lam, z)
+        I = I + torch.einsum("bskc,sc->bsk", r, gp.betabar)
     return I
 
 
@@ -141,7 +270,7 @@ def gplogjoint_J(cfg: GPConfig, gp: GP, mu, sigma, lam, kmask, z=None):
     J (B, S, K, K) (`gplogjoint.m:306-339`)."""
     D = cfg.D
     if z is None:
-        z, _ = _z_matrix(cfg, gp, mu, sigma, lam)
+        z = _z_matrix(cfg, gp, mu, sigma, lam)[0]
     log_ell = gp.hyp[:, :D]
     ell2 = torch.exp(2.0 * log_ell)
     ln_sf2 = 2.0 * gp.hyp[:, D]
@@ -162,6 +291,11 @@ def gplogjoint_J(cfg: GPConfig, gp: GP, mu, sigma, lam, kmask, z=None):
     Lb = gp.L.expand(z.shape[0], *gp.L.shape)
     U = torch.cholesky_solve(z.transpose(-1, -2), Lb)           # (B,S,N,K)
     J = prior_term - z @ U
+    if cfg.nint > 0:
+        # + r_j^T A^-1 r_k: the bilinear form factorises through the double
+        # integral, so the correction is exact
+        r = _intmean_r(cfg, gp, mu, sigma, lam, z)              # (B,S,K,Nb)
+        J = J + torch.einsum("bsjc,scd,bskd->bsjk", r, gp.Ainv, r)
     mK = kmask.to(J.dtype)
     return J * mK[:, None] * mK[None, :]
 
@@ -182,7 +316,7 @@ def gplogjoint(cfg: GPConfig, gp: GP, mu, sigma, lam, w, kmask,
     """Expected log joint G (B,), averaged over hyperparameter samples.
     compute_var: 0 none, 1 full K x K covariance, 2 diagonal only.
     Returns (G, varG, varss, I, J)."""
-    z, _ = _z_matrix(cfg, gp, mu, sigma, lam)
+    z = _z_matrix(cfg, gp, mu, sigma, lam)[0]
     I = gplogjoint_I(cfg, gp, mu, sigma, lam, z=z)
     wk = w * kmask.to(w.dtype)
     F_s = torch.einsum("bsk,bk->bs", I, wk)

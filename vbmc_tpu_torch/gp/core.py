@@ -15,19 +15,38 @@ import torch
 
 from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.kernels import kernel_cross
-from vbmc_tpu_torch.gp.means import mean_function
+from vbmc_tpu_torch.gp.means import mean_function, int_mean_basis
 from vbmc_tpu_torch.gp.noise import noise_variance
+from vbmc_tpu_torch.gp.outwarp import outwarp_direct, outwarp_deriv
 
 _LOG2PI = 1.8378770664093453
 
 
-def _system_matrix(cfg: GPConfig, hyp: torch.Tensor, X, s2, mask):
+def warped_observations(cfg: GPConfig, hyp: torch.Tensor, y, s2, mask):
+    """Apply the output warp to the observations and the user noise:
+    (t (Bt, N), s2 warped (Bt, N), log_jac (Bt,)), where log_jac is the
+    masked sum of log |dt/dy| (`gplite_core.m:14-26,196-198`). Without a
+    warp y and s2 come back as they are, with log_jac 0."""
+    if cfg.outwarp == 0:
+        return y[None, :], s2, hyp.new_zeros(hyp.shape[0])
+    hyp_ow = hyp[:, cfg.sl_outwarp]
+    t = outwarp_direct(cfg.outwarp, hyp_ow, y[None, :])
+    g = outwarp_deriv(cfg.outwarp, hyp_ow, y[None, :])
+    m = mask.to(y.dtype)
+    log_jac = (torch.log(g.abs() + torch.finfo(y.dtype).tiny) * m).sum(-1)
+    s2w = None if s2 is None else s2 * g * g
+    return t * m, s2w, log_jac
+
+
+def _system_matrix(cfg: GPConfig, hyp: torch.Tensor, X, y, s2, mask):
     """B = K + diag(sn2) with identity rows/cols on padded entries:
-    ((Bt, N, N), sn2 (Bt, N)). ``s2`` (N,) is the user noise variance
-    (None for noiseless targets)."""
+    ((Bt, N, N), sn2 (Bt, N)). ``y`` (N,) is the observation vector before
+    any output warp: the output-dependent noise keys on it even under a
+    warp (`gplite_core.m:35`). ``s2``, (N,) or (Bt, N), is the user noise
+    variance, already scaled by the warp (None for noiseless targets)."""
     m = mask.to(X.dtype)
     K = kernel_cross(cfg, hyp, X, X) * (m[:, None] * m[None, :])
-    sn2 = noise_variance(cfg, hyp[:, cfg.sl_noise], X.shape[0], s2)
+    sn2 = noise_variance(cfg, hyp[:, cfg.sl_noise], X.shape[0], s2, y)
     diag = sn2 * m + (1.0 - m)
     return K + torch.diag_embed(diag), sn2
 
@@ -61,29 +80,57 @@ def robust_cholesky(B: torch.Tensor):
     return L, first_ok
 
 
+def _masked_basis(cfg: GPConfig, X, m):
+    """The integrated mean's basis at the training inputs, zero on padded
+    rows: (N, Nb)."""
+    return int_mean_basis(cfg, X) * m[:, None]
+
+
 def build_posterior(cfg: GPConfig, hyp: torch.Tensor, X, y, s2, mask):
     """Posterior factorisation for hyp (S, nhyp): alpha (S, N), L and the
-    explicit inverse Binv (S, N, N), sn2 (S, N), chol_ok (S,)."""
-    B, sn2 = _system_matrix(cfg, hyp, X, s2, mask)
+    explicit inverse Binv (S, N, N), sn2 (S, N), chol_ok (S,), and a dict
+    of the integrated mean's extras, each None unless ``cfg.intmean > 0``:
+    the GLS estimate of the basis coefficients betabar (S, Nb), HBinv
+    (S, Nb, N) and Ainv = (H B^-1 H^T)^-1 (S, Nb, Nb) (the `intmean` block
+    of `gplite_post.m:174-197`, `gplite_core.m:106-124`)."""
+    t, s2w, _ = warped_observations(cfg, hyp, y, s2, mask)
+    B, sn2 = _system_matrix(cfg, hyp, X, y, s2w, mask)
     m = mask.to(X.dtype)
-    r = (y[None, :] - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
+    r = (t - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
     L, ok = robust_cholesky(B)
     alpha = (torch.cholesky_solve(r[..., None], L)[..., 0] * m).contiguous()
     eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
     # cholesky_solve returns column-major matrices; the sweep kernel reads
     # Binv row-major.
     Binv = torch.cholesky_solve(eye.expand_as(B), L).contiguous()
-    return alpha, L, Binv, sn2, ok
+    extras = dict(betabar=None, HBinv=None, Ainv=None)
+    if cfg.nint > 0:
+        H = _masked_basis(cfg, X, m)                          # (N, Nb)
+        BiH = torch.cholesky_solve(H.expand(B.shape[0], -1, -1), L)
+        A = H.T @ BiH                                         # (S, Nb, Nb)
+        eye_b = torch.eye(cfg.nint, dtype=B.dtype, device=B.device)
+        Ainv = torch.cholesky_solve(eye_b.expand_as(A),
+                                    torch.linalg.cholesky_ex(A)[0])
+        betabar = (Ainv @ (H.T @ alpha[..., None]))[..., 0]
+        extras = dict(betabar=betabar,
+                      HBinv=BiH.transpose(-1, -2).contiguous(),
+                      Ainv=Ainv.contiguous())
+    return alpha, L, Binv, sn2, ok, extras
 
 
 def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y, s2,
                                 mask) -> torch.Tensor:
     """Masked negative log marginal likelihood (B,), differentiable in hyp.
     Where the Cholesky fails the value is +inf and the gradient 0 (the
-    factorisation is redone on an identity so no NaN reaches autograd)."""
-    B, _ = _system_matrix(cfg, hyp, X, s2, mask)
+    factorisation is redone on an identity so no NaN reaches autograd).
+    Under an output warp the likelihood is that of the warped observations
+    plus the Jacobian of the change of variables (`gplite_core.m:196-198`);
+    an integrated mean's coefficients are marginalised exactly under a
+    vague prior (`gplite_core.m:133-189`)."""
+    t, s2w, log_jac = warped_observations(cfg, hyp, y, s2, mask)
+    B, _ = _system_matrix(cfg, hyp, X, y, s2w, mask)
     m = mask.to(X.dtype)
-    r = (y[None, :] - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
+    r = (t - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
     L, info = torch.linalg.cholesky_ex(B)
     ok = _chol_ok(L.detach(), info)
     if not bool(ok.all()):
@@ -94,7 +141,24 @@ def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y, s2,
     nlZ = (0.5 * (r * a).sum(-1)
            + (torch.log(torch.diagonal(L, dim1=-2, dim2=-1)) * m).sum(-1)
            + 0.5 * m.sum() * _LOG2PI)
-    return torch.where(ok, nlZ, math.inf)
+    if cfg.nint > 0:
+        # nlZ += -1/2 u^T A^-1 u + 1/2 log|A| - Nb/2 log(2 pi), with
+        # A = H B^-1 H^T and u = H B^-1 r
+        H = _masked_basis(cfg, X, m)
+        A = H.T @ torch.cholesky_solve(H.expand(B.shape[0], -1, -1), L)
+        u = (H.T @ a[..., None])
+        LA, info_a = torch.linalg.cholesky_ex(A)
+        ok_a = _chol_ok(LA.detach(), info_a)
+        if not bool(ok_a.all()):
+            eye_b = torch.eye(cfg.nint, dtype=B.dtype, device=B.device)
+            LA = torch.linalg.cholesky_ex(
+                torch.where(ok_a[:, None, None], A, eye_b))[0]
+            ok = ok & ok_a
+        w = torch.linalg.solve_triangular(LA, u, upper=False)[..., 0]
+        nlZ = (nlZ - 0.5 * (w * w).sum(-1)
+               + torch.log(torch.diagonal(LA, dim1=-2, dim2=-1)).sum(-1)
+               - 0.5 * cfg.nint * _LOG2PI)
+    return torch.where(ok, nlZ - log_jac, math.inf)
 
 
 def hyperprior_logpdf(prior, hyp: torch.Tensor) -> torch.Tensor:

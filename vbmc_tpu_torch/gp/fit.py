@@ -12,11 +12,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vbmc_tpu_torch.gp.config import GPConfig, MEAN_NEGQUAD, MEAN_CONST
+from vbmc_tpu_torch.gp.config import (
+    GPConfig, MEAN_NEGQUAD, MEAN_CONST, MEAN_SE, MEAN_NEGQUADFIXISO,
+    MEAN_NEGQUADFIX, MEAN_NEGQUADSEFIX, MEAN_NEGQUADMIX)
 from vbmc_tpu_torch.gp import core
 from vbmc_tpu_torch.gp.gp import HypPrior, build_gp
 from vbmc_tpu_torch.gp.means import mean_info
 from vbmc_tpu_torch.gp.noise import noise_info
+from vbmc_tpu_torch.gp.outwarp import outwarp_info
 from vbmc_tpu_torch.optim import minimize_lbfgs_bounded
 from vbmc_tpu_torch.samplers.ensemble import ensemble_slice_final
 from vbmc_tpu_torch.samplers.slice import slice_sample_chains
@@ -45,6 +48,11 @@ class TrainOptions:
     tol_sd: float = 0.1
     uncertainty_level: int = 0   # 0 exact; 1 infer noise; 2 provided noise
     upper_length_factor: float = 0.0
+    # Output-warp ("fitness shaping") threshold state
+    # (`gptrain_vbmc.m:246-270`): how far below ymax the warp may engage,
+    # and the scale of the half-Cauchy prior on the threshold.
+    outwarp_delta: Optional[float] = None
+    outwarp_thresh_base: Optional[float] = None
 
 
 def get_hpd(X: np.ndarray, y: np.ndarray, frac: float = 0.8):
@@ -77,13 +85,20 @@ def assemble_hyp_prior(cfg: GPConfig, X: np.ndarray, y: np.ndarray,
     sigma = np.full(nh, np.nan)
     df = np.full(nh, 3.0)
 
-    # Covariance: log ell (ard), log sf.
-    lw = np.log(width)
-    lb[:D] = lw + np.log(ToL)
-    ub[:D] = lw + np.log(10.0)
-    plb[:D] = lw + 0.5 * np.log(ToL)
-    pub[:D] = lw
-    x0[:D] = np.log(np.maximum(X_hpd.std(axis=0, ddof=1), 1e-10))
+    # Covariance: log ell, log sf. An iso kernel has one length scale,
+    # whose statistics are the means over the dimensions
+    # (`gplite_covfun.m:116-123`); an ard kernel has them per dimension.
+    ne = cfg.n_ell
+
+    def per_ell(v):
+        return v if ne == D else np.mean(v)
+
+    lw = per_ell(np.log(width))
+    lb[:ne] = lw + np.log(ToL)
+    ub[:ne] = lw + np.log(10.0)
+    plb[:ne] = lw + 0.5 * np.log(ToL)
+    pub[:ne] = lw
+    x0[:ne] = per_ell(np.log(np.maximum(X_hpd.std(axis=0, ddof=1), 1e-10)))
     i_sf = cfg.idx_log_sf
     lb[i_sf] = np.log(height) + np.log(ToL)
     ub[i_sf] = np.log(height * 10)
@@ -91,14 +106,15 @@ def assemble_hyp_prior(cfg: GPConfig, X: np.ndarray, y: np.ndarray,
     pub[i_sf] = np.log(height)
     x0[i_sf] = np.log(max(np.std(yh, ddof=1), 1e-10))
     if opts.upper_length_factor > 0:
-        ub[:D] = np.log(opts.upper_length_factor * (pub_tr - plb_tr))
+        ub[:ne] = per_ell(np.log(opts.upper_length_factor
+                                 * (pub_tr - plb_tr)))
 
     # Fixed length-scale prior from the plausible box (gptrain:288-289).
     mult = opts.length_prior_mean_mult
     if mult is None:
         mult = np.sqrt(D / 6.0)
-    mu[:D] = np.log(mult * (pub_tr - plb_tr))
-    sigma[:D] = opts.length_prior_std
+    mu[:ne] = per_ell(np.log(mult * (pub_tr - plb_tr)))
+    sigma[:ne] = opts.length_prior_std
 
     # Noise (gptrain:143-165, 180): the constant term, then the user-noise
     # multiplier.
@@ -139,11 +155,70 @@ def assemble_hyp_prior(cfg: GPConfig, X: np.ndarray, y: np.ndarray,
     plb[sl], pub[sl] = minfo["plb"], minfo["pub"]
     x0[sl] = minfo["x0"]
     i_m = cfg.ncov + cfg.nnoise
-    if cfg.meanfun == MEAN_NEGQUAD and opts.quadratic_mean_bound:
+    if cfg.meanfun in (MEAN_NEGQUAD, MEAN_NEGQUADFIXISO, MEAN_NEGQUADFIX,
+                       MEAN_NEGQUADSEFIX, MEAN_NEGQUADMIX) \
+            and opts.quadratic_mean_bound:
+        # every quadratic family that the reference trains, meanfuns
+        # {4,10,12,14,22} (`gptrain_vbmc.m:186-203`)
         deltay = max(opts.tol_sd, min(D, yh.max() - yh.min()))
         ub[i_m] = yh.max() + deltay
     elif cfg.meanfun == MEAN_CONST:
         ub[i_m] = yh.min()
+    elif cfg.meanfun == MEAN_SE:
+        x0[i_m] = y.min()
+        ub[i_m] = yh.min()
+    if cfg.meanfun == MEAN_NEGQUADSEFIX:
+        # tighter bounds on the SE rescale and Student-t priors on alpha_se
+        # and h_se (`gptrain_vbmc.m:190-193,291-296`); without them h_se
+        # roams up to 1e4
+        i_a, i_h = i_m + D + 1, i_m + D + 2
+        ub[i_a] = np.log(1.0)
+        lb[i_a] = np.log(1e-3)
+        mu[i_a], sigma[i_a] = np.log(0.1), np.log(10.0)
+        mu[i_h], sigma[i_h] = np.log(0.1), np.log(100.0)
+    elif cfg.meanfun == MEAN_NEGQUADMIX:
+        # t priors on the mixture's shape hm, rho, beta
+        # (`gptrain_vbmc.m:221-230`), with the range of all of y
+        y_all = np.asarray(y, float)
+        i_hm = i_m + 2 * D + 1
+        mu[i_hm] = 0.0
+        sigma[i_hm] = max(0.5 * float(y_all.max() - y_all.min()), 1e-3)
+        mu[i_hm + 1], sigma[i_hm + 1] = 0.0, 1.0     # log rho
+        mu[i_hm + 2], sigma[i_hm + 2] = 0.0, 1.0     # log beta
+
+    # Output warp (gptrain:246-270).
+    if cfg.noutwarp > 0:
+        oinfo = outwarp_info(cfg.outwarp, yh)
+        sl = cfg.sl_outwarp
+        lb[sl], ub[sl] = oinfo["lb"], oinfo["ub"]
+        plb[sl], pub[sl] = oinfo["plb"], oinfo["pub"]
+        x0[sl] = oinfo["x0"]
+        i_w = cfg.ncov + cfg.nnoise + cfg.nmean
+        delta = opts.outwarp_delta if opts.outwarp_delta is not None \
+            else 10.0 * D
+        base = opts.outwarp_thresh_base \
+            if opts.outwarp_thresh_base is not None else 10.0 * D
+        y_all = np.asarray(y, float)
+        # the threshold engages at most delta below ymax, under a
+        # half-Cauchy prior
+        ub[i_w] = y_all.max() - delta
+        lb[i_w] = min(y_all.min(), y_all.max() - 2 * delta)
+        plb[i_w] = min(plb[i_w], ub[i_w])
+        pub[i_w] = min(pub[i_w], ub[i_w])
+        mu[i_w] = y_all.max() - delta
+        sigma[i_w] = base
+        df[i_w] = 1.0
+        if cfg.outwarp in (1, 2):          # negpow / negpowc1: [y0, log k]
+            ub[i_w + 1] = np.log(2.0)
+            mu[i_w + 1] = 0.0
+            sigma[i_w + 1] = np.log(2.0)
+        else:                              # negscaledpow: [y0, log a, log k]
+            mu[i_w + 1] = 0.0
+            sigma[i_w + 1] = np.log(2.0)
+            ub[i_w + 2] = 0.0
+            mu[i_w + 2] = 0.0
+            sigma[i_w + 2] = np.log(2.0)
+        x0[sl] = np.minimum(x0[sl], ub[sl] - 1e-6)
 
     nanmask = np.isnan(x0)
     x0[nanmask] = 0.5 * (plb[nanmask] + pub[nanmask])

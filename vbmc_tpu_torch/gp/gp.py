@@ -39,6 +39,10 @@ class GP:
     L: torch.Tensor         # (S_max, N_max, N_max)
     Binv: torch.Tensor      # (S_max, N_max, N_max) explicit inverse
     sn2: torch.Tensor       # (S_max, N_max)
+    # the integrated mean's extras (None unless cfg.intmean > 0)
+    betabar: Optional[torch.Tensor] = None   # (S_max, Nb)
+    HBinv: Optional[torch.Tensor] = None     # (S_max, Nb, N_max)
+    Ainv: Optional[torch.Tensor] = None      # (S_max, Nb, Nb)
 
     @property
     def n_max(self) -> int:
@@ -57,10 +61,10 @@ def build_gp(cfg: GPConfig, X, y, s2, mask, hyp_samples, hyp_mask) -> GP:
     """Posterior factorisations for all hyperparameter samples; masked
     samples are factorised too (dense buffers) and excluded from averages
     through ``hyp_mask``."""
-    alpha, L, Binv, sn2, _ = core.build_posterior(cfg, hyp_samples, X, y, s2,
-                                                  mask)
+    alpha, L, Binv, sn2, _, extras = core.build_posterior(
+        cfg, hyp_samples, X, y, s2, mask)
     return GP(X=X, y=y, s2=s2, mask=mask, hyp=hyp_samples, hyp_mask=hyp_mask,
-              alpha=alpha, L=L, Binv=Binv, sn2=sn2)
+              alpha=alpha, L=L, Binv=Binv, sn2=sn2, **extras)
 
 
 def gp_from_host(cfg: GPConfig, X: np.ndarray, y: np.ndarray,

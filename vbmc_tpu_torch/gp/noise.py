@@ -2,8 +2,7 @@
 `gplite/gplite_noisefun.m`): the total noise variance of each training
 point is the constant noise term plus the user-provided noise, taken as
 given (``user_noise`` 1) or rescaled by a hyperparameter (``user_noise``
-2). Output-dependent noise is not ported: the orchestrator never turns it
-on."""
+2), plus rectified-linear output-dependent noise (``output_noise`` 1)."""
 
 from __future__ import annotations
 
@@ -13,18 +12,11 @@ import torch
 from vbmc_tpu_torch.gp.config import GPConfig
 
 
-def check_noise(cfg: GPConfig):
-    if cfg.output_noise != 0:
-        raise NotImplementedError(
-            "output-dependent GP noise is not ported (ROADMAP Queue 1, "
-            "slice 3)")
-
-
 def noise_variance(cfg: GPConfig, hyp_noise: torch.Tensor, n: int,
-                   s2=None) -> torch.Tensor:
-    """Per-point noise variance (B, n) for hyp_noise (B, nnoise) and the
-    user noise variance s2 (n,) (None counts as 0)."""
-    check_noise(cfg)
+                   s2=None, y=None) -> torch.Tensor:
+    """Per-point noise variance (B, n) for hyp_noise (B, nnoise), the user
+    noise variance s2, (n,) or (B, n), and the observations y (n,) that the
+    output-dependent term keys on (None counts as 0 for either)."""
     B = hyp_noise.shape[0]
     idx = 0
     if cfg.const_noise == 1:
@@ -33,16 +25,23 @@ def noise_variance(cfg: GPConfig, hyp_noise: torch.Tensor, n: int,
     else:
         sn2 = torch.full((B, n), torch.finfo(hyp_noise.dtype).eps,
                          dtype=hyp_noise.dtype, device=hyp_noise.device)
-    if s2 is not None and cfg.user_noise == 1:
-        sn2 = sn2 + s2[None, :]
-    elif s2 is not None and cfg.user_noise == 2:
-        sn2 = sn2 + torch.exp(hyp_noise[:, idx:idx + 1]) * s2[None, :]
+    if cfg.user_noise == 1:
+        if s2 is not None:
+            sn2 = sn2 + s2
+    elif cfg.user_noise == 2:
+        if s2 is not None:
+            sn2 = sn2 + torch.exp(hyp_noise[:, idx:idx + 1]) * s2
+        idx += 1
+    if cfg.output_noise == 1:
+        ythresh = hyp_noise[:, idx:idx + 1]
+        w2 = torch.exp(2.0 * hyp_noise[:, idx + 1:idx + 2])
+        zz = torch.clamp(ythresh - (0.0 if y is None else y), min=0.0)
+        sn2 = sn2 + w2 * zz * zz
     return sn2
 
 
 def noise_info(cfg: GPConfig, y: np.ndarray):
     """Bounds / plausible box / x0 of the noise hyperparameters."""
-    check_noise(cfg)
     nn = cfg.nnoise
     info = dict(lb=np.full(nn, -np.inf), ub=np.full(nn, np.inf),
                 plb=np.full(nn, -np.inf), pub=np.full(nn, np.inf),
@@ -63,4 +62,15 @@ def noise_info(cfg: GPConfig, y: np.ndarray):
         for k, v in dict(lb=np.log(1e-3), ub=np.log(1e3), plb=np.log(0.5),
                          pub=np.log(2.0), x0=0.0).items():
             info[k][idx] = v
+        idx += 1
+    if cfg.output_noise == 1:
+        # the threshold, then the log slope; the caller sets the
+        # threshold's own bounds from the dimension
+        miny, maxy = y.min(), y.max()
+        for k, v in dict(lb=miny, ub=maxy, plb=miny, pub=max(maxy - 5, miny),
+                         x0=max(maxy - 10, miny)).items():
+            info[k][idx] = v
+        for k, v in dict(lb=np.log(1e-3), ub=np.log(0.1), plb=np.log(0.01),
+                         pub=np.log(0.1), x0=np.log(0.1)).items():
+            info[k][idx + 1] = v
     return info

@@ -1,6 +1,7 @@
 """The VBMC orchestrator (cf. `vbmc_tpu/main.py`, `vbmc.m:506-882`), for
 noiseless targets and for noisy ones that return their noise SD or leave it
-to the GP.
+to the GP, with every GP mean family, the integrated mean, output warping
+("fitness shaping"), bandwidth smoothing and every acquisition.
 
 Orchestration (state machine, warm-up, termination, warp-undo
 transactions, the acquisition hedge) is host Python on numpy, in the port's
@@ -21,28 +22,41 @@ import torch
 from vbmc_tpu_torch.options import VBMCOptions, ResolvedOptions
 from vbmc_tpu_torch import state as st
 from vbmc_tpu_torch.hedge import AcqHedge
-from vbmc_tpu_torch.transforms import (create_trinfo, direct_np, LOGIT,
-                                       PROBIT, STUDENT4)
+from vbmc_tpu_torch.transforms import (create_trinfo, direct_np, inverse_np,
+                                       LOGIT, PROBIT, STUDENT4)
 from vbmc_tpu_torch.function_logger import FunctionLogger
-from vbmc_tpu_torch.gp.config import (GPConfig, MEAN_ZERO, MEAN_CONST,
-                                      MEAN_NEGQUAD)
+from vbmc_tpu_torch.gp.config import (
+    GPConfig, MEAN_ZERO, MEAN_CONST, MEAN_NEGQUAD, MEAN_SE, MEAN_NEGQUADSE,
+    MEAN_NEGQUADONLY, MEAN_NEGQUADLINONLY, MEAN_NEGQUADFIXISO,
+    MEAN_NEGQUADFIX, MEAN_NEGQUADSEFIX, MEAN_NEGQUADFIXONLY, MEAN_NEGQUADMIX,
+    FIXED_CENTER_MEANFUNS, OUTWARP_NEGPOW, OUTWARP_NEGPOWC1,
+    OUTWARP_NEGSCALEDPOW)
 from vbmc_tpu_torch.gp.fit import train_gp, TrainOptions
+from vbmc_tpu_torch.gp.means import fix_center_from_data
 from vbmc_tpu_torch.gp.predict import gp_predict
 from vbmc_tpu_torch.vp import (VariationalPosterior, make_vp, vp_moments,
-                               vp_kldiv)
+                               vp_kldiv, vp_rnd)
 from vbmc_tpu_torch.vpoptim import vpoptimize
 from vbmc_tpu_torch.active_sample import (initial_design, active_sample,
-                                          SearchBounds, gp_reupdate,
-                                          check_search_options)
-from vbmc_tpu_torch.acquisitions import check_acq
+                                          SearchBounds, gp_reupdate)
 from vbmc_tpu_torch.quick_update import QuickUpdater
 from vbmc_tpu_torch.utils.math import bucket_k, bucket_n, mvn_kl, pad_to, \
     to_np, N_BUCKETS
 
 _MEANFUN_IDS = {"zero": MEAN_ZERO, "const": MEAN_CONST,
-                "negquad": MEAN_NEGQUAD}
+                "negquad": MEAN_NEGQUAD, "se": MEAN_SE,
+                "negquadse": MEAN_NEGQUADSE,
+                "negquadonly": MEAN_NEGQUADONLY,
+                "negquadlinonly": MEAN_NEGQUADLINONLY,
+                "negquadfixiso": MEAN_NEGQUADFIXISO,
+                "negquadfix": MEAN_NEGQUADFIX,
+                "negquadsefix": MEAN_NEGQUADSEFIX,
+                "negquadfixonly": MEAN_NEGQUADFIXONLY,
+                "negquadmix": MEAN_NEGQUADMIX}
 _TRANSFORM_IDS = {"logit": LOGIT, "probit": PROBIT, "norminv": PROBIT,
                   "student4": STUDENT4}
+_OUTWARP_IDS = {"negpow": OUTWARP_NEGPOW, "negpowc1": OUTWARP_NEGPOWC1,
+                "negscaledpow": OUTWARP_NEGSCALEDPOW}
 
 
 @dataclasses.dataclass
@@ -139,35 +153,39 @@ def bounds_check(x0, lb, ub, plb, pub, D):
 
 
 def _check_slice(opt: ResolvedOptions):
-    """Options whose code lies outside the ported slice raise, naming the
-    ROADMAP item; none is silently ignored."""
+    """Options whose code is not ported yet raise, naming the ROADMAP item;
+    none is silently ignored."""
     def no(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                  f"Queue 1, {item})")
+                                  f"Queue 1, item 12: {item})")
 
-    if opt.fitness_shaping:
-        no("fitness_shaping (output warping)", "slice 3")
-    if opt.gp_int_mean_fun > 0:
-        no("gp_int_mean_fun > 0", "slice 3")
-    if opt.bandwidth > 0:
-        no("bandwidth > 0", "slice 3")
     if opt.plot:
-        no("plot", "slice 4")
+        no("plot", "plotting.py")
     if opt.temperature != 1:
-        no("temperature > 1 (vp_power)", "slice 3")
+        no("temperature > 1", "vp_power and vp_train2real")
     if opt.retry_max_fun_evals > 0:
-        no("retry_max_fun_evals > 0 (warm start from a VP)", "slice 4")
+        no("retry_max_fun_evals > 0", "warm starts from a VP")
     if opt.fvals is not None:
-        no("fvals (pre-evaluated starting points)", "slice 4")
+        no("fvals (pre-evaluated starting points)", "warm starts and fvals")
+
+
+def _check_options(opt: ResolvedOptions):
+    """The reference's up-front validation of enum-like options
+    (`vbmc_tpu/main.py:397-416`)."""
     if opt.gp_mean_fun not in _MEANFUN_IDS:
-        no(f"gp_mean_fun={opt.gp_mean_fun!r}", "slice 3")
+        raise ValueError(
+            f"gp_mean_fun={opt.gp_mean_fun!r} is not supported; choose one "
+            f"of {sorted(_MEANFUN_IDS)}.")
     if opt.bounded_transform not in _TRANSFORM_IDS:
         raise ValueError(
             f"bounded_transform={opt.bounded_transform!r} is not supported; "
             f"choose one of {sorted(_TRANSFORM_IDS)}.")
-    for a in opt.search_acq_fcn:
-        check_acq(_canonical_acq(a))
-    check_search_options(opt)
+    if opt.fitness_shaping and opt.gp_out_warp_fun not in _OUTWARP_IDS:
+        raise ValueError(
+            f"gp_out_warp_fun={opt.gp_out_warp_fun!r} is not supported; "
+            f"choose one of {sorted(_OUTWARP_IDS)}.")
+    for a in (opt.search_acq_fcn or ()):
+        _canonical_acq(a)
 
 
 def _gp_train_options(state: st.OptimState, stats: st.Stats,
@@ -232,7 +250,9 @@ def _gp_train_options(state: st.OptimState, stats: st.Stats,
         length_prior_std=options.gp_length_prior_std,
         quadratic_mean_bound=options.gp_quadratic_mean_bound,
         tol_sd=options.tol_sd, uncertainty_level=uncertainty_level,
-        upper_length_factor=options.upper_gp_length_factor)
+        upper_length_factor=options.upper_gp_length_factor,
+        outwarp_delta=state.outwarp_delta,
+        outwarp_thresh_base=options.out_warp_thresh_base)
 
 
 def _update_hyp_runcov(state: st.OptimState, hyp_full: np.ndarray,
@@ -248,6 +268,19 @@ def _update_hyp_runcov(state: st.OptimState, hyp_full: np.ndarray,
     else:
         w = options.hyp_run_weight ** options.fun_evals_per_iter
         state.hyp_runcov = (1 - w) * hypcov + w * state.hyp_runcov
+
+
+def _recenter_cfg(cfg: GPConfig, X_tr: np.ndarray,
+                  y_tr: np.ndarray) -> GPConfig:
+    """Move the fixed centre of the FIXED_CENTER_MEANFUNS families to the
+    current incumbent, as the reference recomputes `meanfun_extras` =
+    X[argmax y] at every `gplite_train` (`gplite_meanfun.m:334-341`)."""
+    if cfg.meanfun not in FIXED_CENTER_MEANFUNS:
+        return cfg
+    center = fix_center_from_data(X_tr, y_tr)
+    if center == cfg.fix_center:
+        return cfg
+    return dataclasses.replace(cfg, fix_center=center)
 
 
 def _noise_shaping(s2, y, options):
@@ -359,6 +392,10 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     torch.backends.cudnn.allow_tf32 = False
     if options is None:
         options = VBMCOptions()
+    if isinstance(x0, VariationalPosterior):
+        raise NotImplementedError(
+            "a warm start from a variational posterior is not ported yet "
+            "(ROADMAP Queue 1, item 12: warm starts from a VP)")
     if x0 is not None:
         x0 = np.atleast_2d(np.asarray(x0, float))
         D = x0.shape[1]
@@ -369,6 +406,7 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
 
     opt = options.resolve(D)
     _check_slice(opt)
+    _check_options(opt)
     x0, lb, ub, plb, pub = bounds_check(x0, lb, ub, plb, pub, D)
     if x0 is None or not np.all(np.isfinite(x0)):
         x0 = 0.5 * (plb + pub)[None, :]
@@ -381,6 +419,12 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     lb_t = direct_np(trinfo, lb[None, :])[0]
     ub_t = direct_np(trinfo, ub[None, :])[0]
 
+    # GP smoothing bandwidth (`setupvars_vbmc.m:247`: delta in units of the
+    # plausible box), applied on the acquisition path as in the reference
+    # (`acqwrapper_vbmc.m:12-15`).
+    opt.delta_smoothing = (opt.bandwidth * (pub_t - plb_t)
+                           if opt.bandwidth > 0 else None)
+
     uncertainty_level = (2 if opt.specify_target_noise
                          else (1 if opt.uncertainty_handling else 0))
     logger = FunctionLogger(fun, D, trinfo,
@@ -391,8 +435,10 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     if opt.noise_shaping:
         user_noise = max(user_noise, 1)
     cfg = GPConfig(D=D, meanfun=_MEANFUN_IDS[opt.gp_mean_fun], const_noise=1,
-                   user_noise=user_noise, output_noise=0, intmean=0,
-                   outwarp=0)
+                   user_noise=user_noise, output_noise=0,
+                   intmean=int(opt.gp_int_mean_fun),
+                   outwarp=(_OUTWARP_IDS[opt.gp_out_warp_fun]
+                            if opt.fitness_shaping else 0))
     shaping = _noise_shaping if opt.noise_shaping else None
 
     gen = torch.Generator(device=device)
@@ -407,7 +453,8 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     state = st.OptimState(warmup=opt.warmup, vp_K=K,
                           entropy_switch=(opt.entropy_switch
                                           and D >= opt.det_entropy_min_d),
-                          outwarp_delta=None)
+                          outwarp_delta=(opt.out_warp_thresh_base
+                                         if opt.fitness_shaping else None))
     if opt.ns_gp_max <= 0:
         state.stop_sampling = math.inf
     stats = st.Stats()
@@ -415,6 +462,7 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
 
     gp = None
     hyp_warm = None
+    search_cache = None    # leftover starting points, in original space
     acq_names = tuple(_canonical_acq(a) for a in opt.search_acq_fcn)
     hedge = None
     if opt.acq_hedge and len(acq_names) > 1:
@@ -489,6 +537,8 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
             sb = SearchBounds(lb=sb_lb_new, ub=sb_ub_new,
                               lb_hard=np.full(D, -np.inf),
                               ub_hard=np.full(D, np.inf))
+            if opt.bandwidth > 0:
+                opt.delta_smoothing = opt.bandwidth * (pub_t - plb_t)
             hyp_warm = hyp_warped
             state.hyp_runcov = None
             state.run_mean = None
@@ -506,6 +556,7 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                                           uncertainty_level)
                 X_tr, y_tr, s2_tr = logger.training_data(
                     noise_shaping=shaping, options=opt)
+                cfg = _recenter_cfg(cfg, X_tr, y_tr)
                 gp, gpinfo_w = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t,
                                         pub_t, topts, hyp0=hyp_warped,
                                         host_seed=int(rng.integers(2 ** 31 - 1)),
@@ -525,6 +576,8 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                     vp, gp = snapshot["vp"], snapshot["gp"]
                     logger.retransform(snapshot["trinfo"])
                     plb_t, pub_t = snapshot["plb_t"], snapshot["pub_t"]
+                    if opt.bandwidth > 0:
+                        opt.delta_smoothing = opt.bandwidth * (pub_t - plb_t)
                     sb = SearchBounds(lb=snapshot["sb_lb"],
                                       ub=snapshot["sb_ub"],
                                       lb_hard=snapshot["sb_lbh"],
@@ -549,9 +602,12 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         if state.skip_active_sampling:
             state.skip_active_sampling = False
         elif gp is None:
-            initial_design(gen, logger, opt.fun_eval_start, plb_t, pub_t,
-                           x0_cache=direct_np(trinfo, x0),
-                           init_design=opt.init_design)
+            cache_t = initial_design(gen, logger, opt.fun_eval_start, plb_t,
+                                     pub_t, x0_cache=direct_np(trinfo, x0),
+                                     init_design=opt.init_design)
+            if len(cache_t):
+                # kept in original space, so that it survives input warps
+                search_cache = inverse_np(logger.trinfo, cache_t)
         else:
             if hedge is not None:
                 acq_name = hedge.choose(rng)
@@ -580,7 +636,11 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                                    tol_gp_var=opt.tol_gp_var,
                                    full_update=full_update,
                                    quick_updater=quick_updater,
-                                   fess_thresh=opt.active_sample_fess_thresh)
+                                   fess_thresh=opt.active_sample_fess_thresh,
+                                   optim_state=state,
+                                   search_cache=(
+                                       direct_np(logger.trinfo, search_cache)
+                                       if search_cache is not None else None))
             if quick_updater is not None:
                 quick_updates += quick_updater.updates
         timers["active_sampling"] += time.monotonic() - t
@@ -592,6 +652,7 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         X_tr, y_tr, s2_tr = logger.training_data(noise_shaping=shaping,
                                                  options=opt)
         hyp0 = _collect_hyp_starts(stats, hyp_warm, topts.ninit)
+        cfg = _recenter_cfg(cfg, X_tr, y_tr)
         gp, gpinfo = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t,
                               topts, hyp0=hyp0,
                               host_seed=int(rng.integers(2 ** 31 - 1)),
@@ -679,6 +740,19 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
             if not state.warmup:
                 state.hyp_runcov = None
         stats.last.warmup = state.warmup
+
+        # Fitness-shaping threshold check (vbmc.m:838-846): raise the
+        # warp's threshold when the posterior's tail of low density reaches
+        # too far below ymax.
+        if (state.outwarp_delta is not None
+                and state.R < opt.warp_tol_reliability):
+            with torch.no_grad():
+                Xrnd = to_np(vp_rnd(vp, gen, 2 ** 14, orig_flag=False))
+            ymu, _ = _predict_padded(cfg, gp, Xrnd)
+            ydelta = max(0.0, logger.ymax - float(np.quantile(ymu, 1e-3)))
+            if (ydelta > state.outwarp_delta * opt.out_warp_thresh_tol
+                    and state.R < 1):
+                state.outwarp_delta *= opt.out_warp_thresh_mult
 
         # Hedge reward: ELCBO improvement over the previous iteration
         # (`vbmc.m:848-850`, `acqhedge_vbmc.m:28-56`).

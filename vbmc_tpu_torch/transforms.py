@@ -270,3 +270,15 @@ def log_abs_det_jacobian_np(trinfo: Trinfo, y: np.ndarray) -> np.ndarray:
                       np.where(t == PROBIT, p_probit, p_t4))
     p = np.where(t == 0, p0, np.where((t == 1) | (t == 2), y_s, p3))
     return np.sum(p + np.log(s), axis=-1)
+
+
+def real_to_int(trinfo: Trinfo, y: torch.Tensor,
+                integer_mask) -> torch.Tensor:
+    """Round integer dimensions through the transform
+    (cf. `misc/real2int_vbmc.m`): map to original space, round the flagged
+    dimensions, map back."""
+    if integer_mask is None or not bool(np.any(np.asarray(integer_mask))):
+        return y
+    x = inverse(trinfo, y)
+    mask = torch.as_tensor(np.asarray(integer_mask, bool), device=y.device)
+    return direct(trinfo, torch.where(mask[None, :], torch.round(x), x))
