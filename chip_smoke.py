@@ -39,25 +39,37 @@ Phases, each printing what it found; any failure exits non-zero:
    only, the time of the design before this one at the same shape.
 4. The noiseless path: `vbmc(..., device="cuda", dtype=torch.float64)` on a
    6-D Gaussian (50 evaluations; ensemble hyperparameter sampler) and a
-   correlated 3-D cigar (60 evaluations; rotoscale warping), each held to
+   correlated 3-D cigar (`cigar_3d`, 40 evaluations; rotoscale warping is
+   on, but this run makes no warp), each held to
    |ELBO - lnZ| < 0.5 and posterior-mean RMSE < 0.5; `prospective_acq` must
    have launched at least once per acquired point. Then that kernel at the
    shapes of the 6-D run's last GP.
    Then `cigar3_families`: the cigar with `gp_mean_fun="negquadse"`,
    `fitness_shaping=True` and `search_acq_fcn=("prospective_log",)`, 60
    evaluations, held to the same gate: the sweep's dispatch must have
-   chosen the plain evaluation, so both kernels must count 0 launches.
+   chosen the plain evaluation, so both kernels must count 0 launches, and
+   the run must make at least one rotoscale warp (`warp_gp_and_vp` on the
+   negquadse-mean, output-warped GP, retraining and the undo check).
+   Then the posterior and GP queries at the last VP and GP of the 6-D run,
+   on the card against the same call on CPU copies, float64, each with
+   its CUDA-event time: `vp_pdf`, `vp_power`/`vp_train2real` (relative
+   1e-10), `vp_mode` (1e-6), `gp_quantile_pred` (1e-8), `gp_fmin` (the
+   point to 1e-6), and by their moments within Monte-Carlo error, as the
+   two generators differ: `gp_rnd`; `vp_mtv` of the last VP against the
+   first iteration's, six seeds a side; `gp_sample` and `mala_sample` by
+   the means of four independent chains a side.
 5. The noisy path: the same call with `specify_target_noise=True` on the
    2-D half-normal with sigma=1 additive noise (the target returns its
    value and SD 1; 80 evaluations), held to the same gate; `viqr_acq` must
-   have launched at least once per acquired point and at least one
-   per-point full update must have run. Then that kernel at the shapes of
-   the run's last GP.
-   Then `halfnorm2_noisy_repeat`: the same target with
-   `max_repeated_observations=2`, 60 evaluations, same gate: the proposals
-   take the host-side search path, which must still sweep through
-   `viqr_acq` once per acquired point; the line says how many evaluations
-   were repeats of a point already observed.
+   have launched at least once per acquired point, at least one per-point
+   full update must have run and at least one rotoscale warp must have
+   been made. Then that kernel at the shapes of the run's last GP.
+   Then `halfnorm2_noisy_repeat`, beside the surface runs of phase 7 in
+   other processes: the same target with `max_repeated_observations=2`,
+   30 evaluations, same gate: the proposals take the host-side search
+   path, which must still sweep through `viqr_acq` once per acquired
+   point; the line says how many evaluations were repeats of a point
+   already observed.
 6. Every acquisition that needs no importance-sampling set (`prospective`,
    `prospective_sn2`, `prospective_log`, `us`, `eig`) through
    `evaluate_acquisition` at the last GP and VP of the `halfnorm2_noisy`
@@ -65,12 +77,32 @@ Phases, each printing what it found; any failure exits non-zero:
    the tensors (float64, rtol 1e-8 plus 1e-6 of the largest value where
    the GP's variance cancels, same argmin), with the CUDA-event time of
    each.
-7. A JSON line with every kernel's numbers, then the last line
+7. The user surface on the 2-D Gaussian of `tests/test_e2e.py:21-36`
+   (lnZ -1.3, mean (0.5, -0.3)), each run held to the same gate and, with
+   the launch counts of the process it runs in, to one `prospective_acq`
+   launch per acquired point. Three processes start together before
+   `halfnorm2_noisy_repeat` and are gathered after `mvn2_retry`:
+   - `mvn2_sweep`: `vbmc_sweep` with two worker processes on the card, 20
+     evaluations each; both runs held to the gate, then
+     `vbmc_diagnostics`;
+   - a child process (`surface_child`): `mvn2_tempered` (`temperature=2`,
+     30 evaluations; the gate on the real posterior that `vp_train2real`
+     gives), then `mvn2_resume` (`save_result` of the tempered run,
+     `load_checkpoint` onto the card, and a new run from its evaluations
+     as `x0` and `fvals`, ten evaluations past the checkpoint's budget: the
+     target must not be called at a pre-evaluated point).
+   In this process, after `halfnorm2_noisy_repeat`: `mvn2_retry` (20
+   evaluations end without stability, and the retry from the best
+   posterior, a warm start from a VP, takes 30 more; the check fails
+   unless the target saw more than 20 calls and the retry's own result,
+   the one the gate holds, is the one returned).
+8. A JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 The launch counts of a path are set to 0 just before it runs and read just
-after; the comparisons' own launches do not count. The script imports
-only the port (`vbmc_tpu_torch`), torch and numpy.
+after; the comparisons' own launches do not count. No kernel or query is
+timed while another process of the script runs. The script imports only
+the port (`vbmc_tpu_torch`), torch and numpy.
 """
 
 from __future__ import annotations
@@ -80,6 +112,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -469,14 +502,29 @@ def phase_kernels(torch, kernels):
     return out
 
 
+def gate(torch, vp, elbo, lnz, mean_true):
+    """|ELBO - lnZ| and the posterior-mean RMSE of a VP on the card."""
+    from vbmc_tpu_torch.vp import vp_moments
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mean, _ = vp_moments(vp, orig_flag=True, n_samples=10 ** 5, gen=gen)
+    mean = mean.cpu().numpy()
+    return abs(elbo - lnz), float(np.sqrt(np.mean((mean - mean_true) ** 2)))
+
+
 def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
-               options, lb=None, ub=None, plb=None, pub=None):
+               options, lb=None, ub=None, plb=None, pub=None, acquired=None,
+               note="", min_warps=0, require=None):
     """One `vbmc` run on the card, held to the gate. ``kernel``: the launch
     counter the run must advance at least once per acquired point; None for
     a run whose sweeps the dispatch gives to the plain evaluation, which
-    must launch neither kernel."""
+    must launch neither kernel. ``acquired``: the acquired points as a
+    function of the result, where they are not the evaluations past the
+    initial design (a retry, pre-evaluated points); ``note``: a function of
+    the result giving more text for the log line; ``min_warps``: the
+    rotoscale warps the run must make; ``require``: a further condition,
+    a function of the result."""
     from vbmc_tpu_torch.main import vbmc
-    from vbmc_tpu_torch.vp import vp_moments
 
     torch.cuda.reset_peak_memory_stats()
     kernels.prospective_acq.launches = 0
@@ -489,26 +537,29 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
     launches = {"prospective_acq": kernels.prospective_acq.launches,
                 "viqr_acq": kernels.viqr_acq.launches}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    mean, _ = vp_moments(res.vp, orig_flag=True, n_samples=10 ** 5, gen=gen)
-    mean = mean.cpu().numpy()
-    err = abs(res.elbo - lnz)
-    rmse = float(np.sqrt(np.mean((mean - mean_true) ** 2)))
-    acquired = res.func_count - options.resolve(D).fun_eval_start
+    err, rmse = gate(torch, res.vp, res.elbo, lnz, mean_true)
+    if acquired is None:
+        acquired = res.func_count - options.resolve(D).fun_eval_start
+    else:
+        acquired = acquired(res)
     if kernel is None:
         launched_ok = not any(launches.values()) and acquired > 0
     else:
         launched_ok = launches[kernel] >= acquired > 0
-    ok = err < 0.5 and rmse < 0.5 and np.isfinite(res.elbo) and launched_ok
+    ok = (err < 0.5 and rmse < 0.5 and np.isfinite(res.elbo) and launched_ok
+          and res.warps_made >= min_warps
+          and (require is None or bool(require(res))))
     lg = res.logger
     repeats = int(lg.nevals[:lg.Xn].sum()) - lg.Xn
     log(f"[e2e] {name}: elbo {res.elbo:.4f} (lnZ {lnz:.4f}, err {err:.4f}) "
         f"elbo_sd {res.elbo_sd:.4f} rmse {rmse:.4f} func_count "
         f"{res.func_count} iterations {res.iterations} seconds {secs:.1f} "
+        f"{note(res) + ' ' if note else ''}"
         f"peak_device_MiB {peak_mib:.1f} kernel_launches {launches} "
         f"acquired_points {acquired} repeated_observations {repeats} "
         f"quick_updates {res.quick_updates} "
-        f"warps_made {res.warps_made} warps_undone {res.warps_undone} timers "
+        f"warps_made {res.warps_made} (at least {min_warps}) warps_undone "
+        f"{res.warps_undone} timers "
         f"{ {k: round(v, 2) for k, v in res.timers.items()} }: "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -562,14 +613,17 @@ def phase_noiseless(torch, kernels):
     def logp_cigar(x):
         return float(-0.5 * x @ prec @ x + lognorm)
 
+    # rotoscale warping is on in both cigars (the default): this run makes
+    # no warp (nor did it at 60 evaluations), the next makes one at 60
     _, l3, _ = run_target(
-        torch, kernels, "prospective_acq", "cigar_rotoscale_3d", logp_cigar,
+        torch, kernels, "prospective_acq", "cigar_3d", logp_cigar,
         D3, np.full(D3, 0.25), 0.0, np.zeros(D3),
-        VBMCOptions(display="off", max_fun_evals=60, seed=3,
+        VBMCOptions(display="off", max_fun_evals=40, seed=3,
                     min_final_components=20),
         plb=np.full(D3, -4.0), pub=np.full(D3, 4.0))
 
-    # a mean family and an acquisition outside the kernel: the plain sweep
+    # a mean family and an acquisition outside the kernel: the plain sweep;
+    # and the warp path on that GP
     run_target(
         torch, kernels, None, "cigar3_families", logp_cigar, D3,
         np.full(D3, 0.25), 0.0, np.zeros(D3),
@@ -577,7 +631,7 @@ def phase_noiseless(torch, kernels):
                     min_final_components=20, gp_mean_fun="negquadse",
                     fitness_shaping=True,
                     search_acq_fcn=("prospective_log",)),
-        plb=np.full(D3, -4.0), pub=np.full(D3, 4.0))
+        plb=np.full(D3, -4.0), pub=np.full(D3, 4.0), min_warps=1)
 
     gp_last, vp_last, Xs = _candidates(torch, res6, D)
     tag = (f"main-path N={gp_last.X.shape[0]} S={gp_last.hyp.shape[0]} "
@@ -585,7 +639,7 @@ def phase_noiseless(torch, kernels):
     r = compare_prospective(torch, kernels, tag, GPConfig(D=D), gp_last,
                             vp_last, Xs, float(res6.logger.ymax), 1e-4)
     r.pop("ref")
-    return l6 + l3, r
+    return l6 + l3, r, res6
 
 
 ACQ_NAMES = ("prospective", "prospective_sn2", "prospective_log", "us",
@@ -669,38 +723,43 @@ def phase_acquisitions(torch, cfg, res, opt, gp, vp, Xs):
                 raise AssertionError(f"{name}: the card and the CPU disagree")
 
 
-def phase_noisy(torch, kernels, seed=1):
+def run_halfnorm_noisy(torch, kernels, name, evals, seed=1, min_warps=0,
+                       **kw):
     """vbmc on the card on the noisy 2-D half-normal (sigma=1 additive noise,
-    the target returns its SD; `bench.py` block `halfnorm2_noisy`), then
-    `viqr_acq` against its plain version and every plain acquisition against
-    the CPU at the shapes of the run's last GP, then the same target with
-    repeated observations. Returns the kernel's launches in the two runs and
-    the comparison."""
+    the target returns its SD; `bench.py` block `halfnorm2_noisy`), with
+    option values ``kw``: `run_target`'s result."""
+    from vbmc_tpu_torch import VBMCOptions
+
+    D = 2
+    sd = np.array([1.0, 0.6])
+    noise = np.random.default_rng(1000 + seed)
+
+    def halfnorm_noisy(x):
+        y = (-0.5 * np.sum((x / sd) ** 2) - np.log(2 * np.pi)
+             - np.sum(np.log(sd)))
+        return float(y + noise.standard_normal()), 1.0
+
+    return run_target(
+        torch, kernels, "viqr_acq", name, halfnorm_noisy, D,
+        np.array([0.5, 0.5]), float(np.log(0.25)), sd * np.sqrt(2 / np.pi),
+        VBMCOptions(display="off", max_fun_evals=evals, seed=seed,
+                    min_final_components=20, specify_target_noise=True,
+                    **kw),
+        lb=np.zeros(D), ub=np.full(D, 10.0), plb=np.full(D, 0.05),
+        pub=np.full(D, 3.0), min_warps=min_warps)
+
+
+def phase_noisy(torch, kernels):
+    """`halfnorm2_noisy` on the card (at least one per-point full update and
+    one warp), then `viqr_acq` against its plain version and every plain
+    acquisition against the CPU at the shapes of the run's last GP. Returns
+    the kernel's launches in the run and the comparison."""
     from vbmc_tpu_torch import VBMCOptions
     from vbmc_tpu_torch.gp.config import GPConfig
 
     D = 2
-    sd = np.array([1.0, 0.6])
-
-    def run(name, evals, **kw):
-        noise = np.random.default_rng(1000 + seed)
-
-        def halfnorm_noisy(x):
-            y = (-0.5 * np.sum((x / sd) ** 2) - np.log(2 * np.pi)
-                 - np.sum(np.log(sd)))
-            return float(y + noise.standard_normal()), 1.0
-
-        return run_target(
-            torch, kernels, "viqr_acq", name, halfnorm_noisy, D,
-            np.array([0.5, 0.5]), float(np.log(0.25)),
-            sd * np.sqrt(2 / np.pi),
-            VBMCOptions(display="off", max_fun_evals=evals, seed=seed,
-                        min_final_components=20, specify_target_noise=True,
-                        **kw),
-            lb=np.zeros(D), ub=np.full(D, 10.0), plb=np.full(D, 0.05),
-            pub=np.full(D, 3.0))
-
-    res, launches, _ = run("halfnorm2_noisy", 80)
+    res, launches, _ = run_halfnorm_noisy(torch, kernels, "halfnorm2_noisy",
+                                          80, min_warps=1)
     if res.quick_updates < 1:
         raise AssertionError("halfnorm2_noisy: no per-point full update ran")
 
@@ -713,11 +772,356 @@ def phase_noisy(torch, kernels, seed=1):
     r.pop("ref")
     phase_acquisitions(torch, cfg, res, VBMCOptions().resolve(D), gp_last,
                        vp_last, Xs)
-    del res, gp_last, vp_last, ais
-    # the host-side search path: still one sweep through the kernel a point
-    _, launches_rep, _ = run("halfnorm2_noisy_repeat", 60,
-                             max_repeated_observations=2)
-    return launches + launches_rep, r
+    return launches, r
+
+
+def phase_repeat(torch, kernels):
+    """`halfnorm2_noisy_repeat`: the host-side search path, still one sweep
+    through `viqr_acq` a point. Returns the kernel's launches."""
+    _, launches, _ = run_halfnorm_noisy(torch, kernels,
+                                        "halfnorm2_noisy_repeat", 30,
+                                        max_repeated_observations=2)
+    return launches
+
+
+class Mvn2:
+    """The 2-D Gaussian of `tests/test_e2e.py:21-36` (lnZ = -1.3, mean
+    (0.5, -0.3)), counting its calls. The sweep's workers unpickle it from
+    this module, which they import from the repository's root."""
+
+    D = 2
+    SD = np.array([1.0, 0.8])
+    MU = np.array([0.5, -0.3])
+    LNZ = -1.3
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, x):
+        self.calls.append(np.array(x, float))
+        return float(-0.5 * np.sum(((x - self.MU) / self.SD) ** 2)
+                     - 0.5 * self.D * np.log(2 * np.pi)
+                     - np.sum(np.log(self.SD)) + self.LNZ)
+
+
+# Budgets of the surface runs: the first run of `mvn2_retry` ends without
+# stability and the retry gets its own budget; `mvn2_resume` runs ten
+# evaluations past the checkpoint of `mvn2_tempered`.
+RETRY_EVALS, RETRY_SECOND = 20, 30
+TEMPERED_EVALS = 30
+SWEEP_EVALS = 20
+# Seconds the surface runs in other processes may take, and their host
+# threads: one each, so that three processes beside this one do not crowd
+# the host's cores with idle-spinning thread pools.
+SURFACE_TIMEOUT = 900.0
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+def _mvn2_opts(**kw):
+    from vbmc_tpu_torch import VBMCOptions
+
+    return VBMCOptions(display="off", seed=1, min_final_components=10, **kw)
+
+
+MVN2_BOX = dict(plb=np.full(Mvn2.D, -3.0), pub=np.full(Mvn2.D, 3.0))
+
+
+def surface_child(workdir):
+    """`mvn2_tempered`, then `mvn2_resume` from its checkpoint in
+    ``workdir``: the child process of `SurfaceAlongside`, on the card with
+    launch counts of its own (the parent has built the kernels). Returns
+    0; a failed check raises."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vbmc_tpu_torch import kernels
+    from vbmc_tpu_torch.serialize import load_checkpoint, save_result
+    from vbmc_tpu_torch.vp import vp_pdf
+
+    kernels.prospective_acq.load()
+    kernels.viqr_acq.load()
+    D, lnz, mu = Mvn2.D, Mvn2.LNZ, Mvn2.MU
+    f = Mvn2()
+    res_t, _, _ = run_target(
+        torch, kernels, "prospective_acq", "mvn2_tempered", f, D,
+        np.zeros(D), lnz, mu, _mvn2_opts(max_fun_evals=TEMPERED_EVALS,
+                                         temperature=2), **MVN2_BOX,
+        note=lambda res: f"temperature {res.logger.T} vp_K_real "
+                         f"{int(res.vp.kmask.sum())} vp_K_train "
+                         f"{int(res.vp_train.kmask.sum())}")
+
+    path = os.path.join(workdir, "mvn2_tempered.npz")
+    save_result(path, res_t)
+    vp_ck, evals, meta = load_checkpoint(path, device="cuda")
+    Xq = torch.as_tensor(evals["X_orig"], device="cuda")
+    if not torch.equal(vp_pdf(vp_ck, Xq), vp_pdf(res_t.vp, Xq)):
+        raise AssertionError("mvn2_resume: the checkpoint's VP differs")
+    g = Mvn2()
+    pre = {tuple(x) for x in evals["X_orig"]}
+    # the logger keeps tempered values, y / T (ROADMAP Queue 3 w)
+    run_target(
+        torch, kernels, "prospective_acq", "mvn2_resume", g, D,
+        evals["X_orig"], lnz, mu,
+        _mvn2_opts(max_fun_evals=meta["func_count"] + 10, temperature=2,
+                   fvals=2.0 * evals["y_orig"]), **MVN2_BOX,
+        acquired=lambda res: len(g.calls),
+        require=lambda res: not any(tuple(c) in pre for c in g.calls),
+        note=lambda res: f"checkpoint_evals {len(pre)} pre_evaluated_kept "
+                         f"{res.logger.cache_count} target_calls "
+                         f"{len(g.calls)} calls_at_pre_evaluated_points "
+                         f"{sum(tuple(c) in pre for c in g.calls)}")
+    return 0
+
+
+class SurfaceAlongside:
+    """The surface runs in other processes, started on entry: `vbmc_sweep`'s
+    two worker processes (waited on by a thread) and one child process
+    running `surface_child`. On exit the child is killed if it still runs;
+    the sweep's workers end at their own timeout."""
+
+    def __init__(self, workdir):
+        self.workdir = workdir
+
+    def __enter__(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        import chip_smoke   # the module the sweep's workers import
+        from vbmc_tpu_torch.main import vbmc_sweep
+
+        def sweep():
+            t = time.monotonic()
+            out = vbmc_sweep(chip_smoke.Mvn2(), x0=np.zeros(Mvn2.D),
+                             options=_mvn2_opts(max_fun_evals=SWEEP_EVALS),
+                             n_runs=2, dispatch="subprocess", device="cuda",
+                             workdir=self.workdir, timeout=SURFACE_TIMEOUT,
+                             env_per_run=[ONE_THREAD] * 2, **MVN2_BOX)
+            return out, time.monotonic() - t
+
+        self.pool = ThreadPoolExecutor(1)
+        self.sweep = self.pool.submit(sweep)
+        self.child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.surface_child(sys.argv[1]))", self.workdir],
+            cwd=ROOT, env={**os.environ, **ONE_THREAD})
+        return self
+
+    def __exit__(self, *exc):
+        if self.child.poll() is None:
+            self.child.kill()
+            self.child.wait()
+        self.pool.shutdown(wait=True)
+        return False
+
+
+def phase_surface(torch, kernels, alongside):
+    """The user surface on the card, each run on `Mvn2` held to the gate:
+    here the retry from the best posterior (a warm start from a VP); then
+    the runs of ``alongside`` are gathered: the child's tempered target and
+    resume of its checkpoint through pre-evaluated values, and the run
+    sweep in two worker processes with its diagnostics."""
+    from vbmc_tpu_torch import VBMCOptions
+
+    D, lnz, mu = Mvn2.D, Mvn2.LNZ, Mvn2.MU
+    start = VBMCOptions().resolve(D).fun_eval_start
+
+    f = Mvn2()
+    run_target(
+        torch, kernels, "prospective_acq", "mvn2_retry", f, D, np.zeros(D),
+        lnz, mu, _mvn2_opts(max_fun_evals=RETRY_EVALS,
+                            retry_max_fun_evals=RETRY_SECOND), **MVN2_BOX,
+        # each run's initial design of `start` points is not acquired
+        acquired=lambda res: len(f.calls) - 2 * start,
+        # the retry ran, and its result is the one returned and gated
+        require=lambda res: (len(f.calls) > RETRY_EVALS
+                             and "first_run" in res.timers),
+        note=lambda res: f"target_calls {len(f.calls)} retry_ran "
+                         f"{len(f.calls) > RETRY_EVALS} returned the "
+                         f"{'second' if 'first_run' in res.timers else 'first'}"
+                         f" run")
+
+    rc = alongside.child.wait(timeout=SURFACE_TIMEOUT)
+    if rc != 0:
+        raise AssertionError(f"surface_child (mvn2_tempered, mvn2_resume) "
+                             f"exited {rc}")
+    (diag, runs), secs = alongside.sweep.result()
+    gates = [gate(torch, vp, elbo, lnz, mu) for vp, elbo, _, _ in runs]
+    ok = all(e < 0.5 and r < 0.5 for e, r in gates)
+    log(f"[e2e] mvn2_sweep: 2 worker processes on the card, {secs:.1f} s "
+        f"from their start to the diagnostics; "
+        f"elbos {[round(r[1], 4) for r in runs]} (lnZ {lnz}) errs "
+        f"{[round(e, 4) for e, _ in gates]} rmses "
+        f"{[round(r, 4) for _, r in gates]} func_counts "
+        f"{[r[3]['func_count'] for r in runs]}; diagnostics exitflag "
+        f"{diag.exitflag} best {diag.best} sKL {diag.skl_matrix[0, 1]:.4g} "
+        f"MTV {diag.mtv_matrix[0, 1]:.4g} ({diag.message}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mvn2_sweep: end-to-end gate failed")
+
+
+def phase_queries(torch, res6):
+    """The posterior and GP queries at the last VP and GP of the `mvn_6d`
+    run: on the card against the same call on CPU copies, float64. The
+    deterministic ones to a stated tolerance, the sampled ones by their
+    moments within Monte-Carlo error (the card's and the CPU's generators
+    differ), each with its CUDA-event time on the card."""
+    from vbmc_tpu_torch.gp.config import GPConfig
+    from vbmc_tpu_torch.gp.sample import (gp_fmin, gp_quantile_pred, gp_rnd,
+                                          gp_sample)
+    from vbmc_tpu_torch.optim import value_and_grad
+    from vbmc_tpu_torch.samplers.mala import mala_sample
+    from vbmc_tpu_torch.vp import (vp_log_pdf_trans, vp_mode, vp_mtv, vp_pdf,
+                                   vp_power, vp_rnd, vp_train2real)
+
+    it = res6.stats.iterations[-1]
+    # vp_mtv compares the last VP with the first iteration's, whose
+    # marginals differ from it by far more than the Monte-Carlo error
+    gp, vp, vp2 = it.gp, it.vp, res6.stats.iterations[0].vp
+    cfg = GPConfig(D=vp.D)
+    gp_c, vp_c, vp2_c = (cast_tree(torch, o, device="cpu")
+                         for o in (gp, vp, vp2))
+    shape = (f"N={gp.X.shape[0]} S={gp.hyp.shape[0]} K={int(vp.kmask.sum())} "
+             f"D={vp.D} float64")
+
+    def gen(dev, seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def report(name, ok, what, ms):
+        log(f"[query] {name} {shape}: {what}; card {ms:.3f} ms: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+
+    def once(fn):
+        """One call on the card and its CUDA-event time."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    X = vp_rnd(vp_c, gen("cpu", 5), 4096)
+    Xd = X.cuda()
+    with torch.no_grad():
+        got = vp_pdf(vp, Xd, log_flag=True).cpu()
+        ref = vp_pdf(vp_c, X, log_flag=True)
+        err = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        report("vp_pdf", err <= QUERY_RTOL,
+               f"4096 points, max |card - cpu| / max(|cpu|, 1) {err:.3e} "
+               f"(rule {QUERY_RTOL})",
+               cuda_time_ms(torch, lambda: vp_pdf(vp, Xd, log_flag=True)))
+
+        (pw, lnz_pow), ms = once(lambda: vp_power(vp, return_lnz=True))
+        pw_c, lnz_c = vp_power(vp_c, return_lnz=True)
+        _, e_card, _ = vp_train2real(vp, 2, res6.elbo, res6.elbo_sd)
+        _, e_cpu, _ = vp_train2real(vp_c, 2, res6.elbo, res6.elbo_sd)
+        errs = [abs(lnz_pow - lnz_c) / abs(lnz_c), abs(e_card - e_cpu)
+                / abs(e_cpu)] + [float(((getattr(pw, k).cpu() - getattr(
+                    pw_c, k)).abs() / getattr(pw_c, k).abs().clamp_min(
+                    1e-300)).max()) for k in ("w", "mu", "sigma")]
+        report("vp_power/vp_train2real", max(errs) <= QUERY_RTOL,
+               f"{int(pw.kmask.sum())} product components, lnZ_pow "
+               f"{lnz_pow:.6f}, largest relative difference {max(errs):.3e} "
+               f"(rule {QUERY_RTOL})", ms)
+
+    xm, ms = once(lambda: vp_mode(vp))
+    xm_c = vp_mode(vp_c)
+    err = float((xm.cpu() - xm_c).abs().max())
+    report("vp_mode", err <= 1e-6, f"mode {np.round(xm_c.numpy(), 4)}, max "
+           f"|card - cpu| {err:.3e} (rule 1e-6)", ms)
+
+    with torch.no_grad():
+        Xs = gp.X[gp.mask][:64]
+        q, ms = once(lambda: gp_quantile_pred(cfg, gp, Xs))
+        q_c = gp_quantile_pred(cfg, gp_c, Xs.cpu())
+        err = float(((q.cpu() - q_c).abs() / q_c.abs().clamp_min(1.0)).max())
+        report("gp_quantile_pred", err <= 1e-8,
+               f"{Xs.shape[0]} points, 3 quantiles, max |card - cpu| / "
+               f"max(|cpu|, 1) {err:.3e} (rule 1e-8)", ms)
+    (xf, ff), ms = once(lambda: gp_fmin(cfg, gp, maximize=True))
+    xf_c, ff_c = gp_fmin(cfg, gp_c, maximize=True)
+    err_x = float((xf.cpu() - xf_c).abs().max())
+    err_f = abs(ff - ff_c) / max(abs(ff_c), 1.0)
+    report("gp_fmin", err_x <= 1e-6 and err_f <= 1e-9,
+           f"maximum {ff_c:.6f}, max |x card - x cpu| {err_x:.3e} (rule "
+           f"1e-6), |f card - f cpu| {err_f:.3e} (rule 1e-9)", ms)
+
+    n = 20000
+    Xr = gp.X[gp.mask][:8]
+    F, ms = once(lambda: gp_rnd(cfg, gp, Xr, gen=gen("cuda", 1), n_draws=n))
+    F_c = gp_rnd(cfg, gp_c, Xr.cpu(), gen=gen("cpu", 1), n_draws=n)
+    F, F_c = F.cpu().numpy(), F_c.numpy()
+    var = np.maximum(F_c.var(0), 1e-300)
+    err_m = float(np.max(np.abs(F.mean(0) - F_c.mean(0))
+                         / np.sqrt(2 * var / n)))
+    err_c = float(np.max(np.abs(np.cov(F.T) - np.cov(F_c.T)))
+                  / (2 * var.max() / np.sqrt(n)))
+    report("gp_rnd", err_m < 5 and err_c < 5,
+           f"{n} joint draws at 8 points; means differ by {err_m:.2f} and "
+           f"covariances by {err_c:.2f} of their standard errors (rule 5)",
+           ms)
+
+    seeds = range(2, 2 + MTV_SEEDS)
+    m, ms = once(lambda: vp_mtv(vp, vp2, gen=gen("cuda", seeds[0])))
+    card = np.stack([m.cpu().numpy()] + [vp_mtv(vp, vp2, gen=gen(
+        "cuda", s)).cpu().numpy() for s in seeds[1:]])
+    cpu = np.stack([vp_mtv(vp_c, vp2_c, gen=gen("cpu", s)).numpy()
+                    for s in seeds])
+    se = np.sqrt((card.var(0, ddof=1) + cpu.var(0, ddof=1)) / MTV_SEEDS)
+    z = np.abs(card.mean(0) - cpu.mean(0)) / se
+    report("vp_mtv", bool(np.all(z <= 5)),
+           f"last VP against the first iteration's, 1e5 draws, {MTV_SEEDS} "
+           f"seeds a side: card {np.round(card.mean(0), 4)} cpu "
+           f"{np.round(cpu.mean(0), 4)}, {np.round(cpu.mean(0) / se, 1)} "
+           f"standard errors; they differ by {np.round(z, 2)} of them "
+           f"(rule 5)", ms)
+
+    def by_replicates(name, draw, what):
+        """Both sides' mean over REPLICATES independent chains each (seeds
+        1, 2, ...): the difference of the two against the standard error
+        that the spread of the replicates' means gives (a chain's own
+        batch means underestimate it: its draws are correlated over more
+        sweeps than a short chain has batches). Times the card's first
+        chain."""
+        card, ms = [], 0.0
+        for k in range(REPLICATES):
+            out, t = once(lambda: draw("cuda", k + 1))
+            card.append(out.cpu().numpy().mean(0))
+            ms = ms or t
+        cpu = np.stack([draw("cpu", k + 1).numpy().mean(0)
+                        for k in range(REPLICATES)])
+        card = np.stack(card)
+        se = np.sqrt((card.var(0, ddof=1) + cpu.var(0, ddof=1)) / REPLICATES)
+        z = np.abs(card.mean(0) - cpu.mean(0)) / se
+        report(name, bool(np.all(z <= 5)),
+               f"{what}, {REPLICATES} chains a side: means differ by "
+               f"{np.round(z, 2)} of their standard error (rule 5)", ms)
+
+    by_replicates("gp_sample", lambda dev, k: gp_sample(
+        cfg, gp if dev == "cuda" else gp_c, 700, gen=gen(dev, k)),
+        "700 draws a chain from exp(GP mean)")
+
+    def lp_grad(v):
+        return lambda x: tuple(a[0] for a in value_and_grad(
+            lambda z: vp_log_pdf_trans(v, z), x[None, :]))
+
+    x0 = (vp.w[:, None] * vp.mu).sum(0)
+    by_replicates("mala_sample", lambda dev, k: mala_sample(
+        gen(dev, k), lp_grad(vp if dev == "cuda" else vp_c), x0.to(dev),
+        1000, step0=0.5, burn=300)[0],
+        "1000 steps a chain after 300 on the last VP's density")
+
+
+# Independent chains a side for the sampled queries, and seeds a side for
+# `vp_mtv`.
+REPLICATES = 4
+MTV_SEEDS = 6
+# The card against the CPU for the deterministic queries in float64: both
+# run the same PyTorch code and differ in the order of their sums only.
+QUERY_RTOL = 1e-10
 
 
 def check_dmma(libs):
@@ -783,8 +1187,16 @@ def main():
 
     results = phase_kernels(torch, kernels)
     launches = {}
-    launches["prospective_acq"], main_p = phase_noiseless(torch, kernels)
+    launches["prospective_acq"], main_p, res6 = phase_noiseless(torch,
+                                                                kernels)
+    phase_queries(torch, res6)
+    del res6
     launches["viqr_acq"], main_v = phase_noisy(torch, kernels)
+    # nothing is timed from here on: other processes share the card
+    with tempfile.TemporaryDirectory() as workdir, \
+            SurfaceAlongside(workdir) as alongside:
+        launches["viqr_acq"] += phase_repeat(torch, kernels)
+        phase_surface(torch, kernels, alongside)
     main_path = {"prospective_acq": main_p, "viqr_acq": main_v}
 
     log(f"[env] nvidia-smi: {smi}")

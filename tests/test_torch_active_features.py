@@ -90,14 +90,15 @@ def test_initial_design_thinning_equals_reference(n_cache, n_evals):
 
     jl = JFunctionLogger(fun, D, j_create_trinfo([-10.0] * D, [10.0] * D,
                                                  plb, pub))
-    left_ref, _ = j_initial_design(jax.random.PRNGKey(0), jl, n_evals, plb,
-                                   pub, x0_cache=cache)
+    left_ref, left_y_ref = j_initial_design(jax.random.PRNGKey(0), jl,
+                                            n_evals, plb, pub, x0_cache=cache)
     tl = FunctionLogger(fun, D, create_trinfo([-10.0] * D, [10.0] * D, plb,
                                               pub))
-    left = tas.initial_design(torch.Generator().manual_seed(0), tl, n_evals,
-                              plb, pub, x0_cache=cache)
+    left, left_y = tas.initial_design(torch.Generator().manual_seed(0), tl,
+                                      n_evals, plb, pub, x0_cache=cache)
     assert tl.Xn == n_evals
     np.testing.assert_array_equal(left, left_ref)
+    np.testing.assert_array_equal(left_y, left_y_ref)
     assert left.shape == (max(n_cache - n_evals, 0), D)
     n_from_cache = min(n_cache, n_evals)
     np.testing.assert_array_equal(tl.X[:n_from_cache], jl.X[:n_from_cache])

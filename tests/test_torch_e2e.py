@@ -1,6 +1,9 @@
 """The port's `vbmc` end to end on CPU tensors, held to the reference's own
 gate (`tests/test_e2e.py:12-18`): |ELBO - lnZ| < 0.5 nats and posterior-mean
-RMSE < 0.5; plus the options outside the ported slice raising."""
+RMSE < 0.5; plus short runs with each option of the user surface, and the
+option values the reference refuses."""
+
+import os
 
 import numpy as np
 import pytest
@@ -109,38 +112,113 @@ def test_noisy_acquisition_hedge_chooses_between_viqr_and_imiqr(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     dict(temperature=2), dict(fvals=np.zeros(1)),
-    dict(retry_max_fun_evals=10), dict(plot=True),
+    dict(retry_max_fun_evals=11), dict(plot=True),
     dict(temperature=2, gp_mean_fun="negquadfix"),
     dict(temperature=2, specify_target_noise=True),
-    dict(retry_max_fun_evals=5, gp_mean_fun="se"),
+    dict(retry_max_fun_evals=11, gp_mean_fun="se"),
     dict(fvals=np.zeros(1), fitness_shaping=True),
     dict(plot=True, gp_int_mean_fun=1), dict(plot=True, bandwidth=0.1),
     dict(temperature=2, integer_vars=[0]),
-    dict(retry_max_fun_evals=10, search_acq_fcn=["prospective_log"]),
+    dict(retry_max_fun_evals=11, search_acq_fcn=["prospective_log"]),
     dict(fvals=np.zeros(1), hpd_search_frac=0.1),
     dict(plot=True, max_repeated_observations=2, specify_target_noise=True),
 ])
-def test_options_outside_the_slice_raise(override):
-    """What is still to be ported (the posterior queries behind
-    ``temperature``, warm starts from a VP, pre-evaluated starting values,
-    plotting) raises and names its ROADMAP item, alone and beside options
-    that are ported."""
-    opts = VBMCOptions(display="off", **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vbmc(lambda x: -float(np.sum(x ** 2)), x0=np.zeros(2),
-             plb=np.full(2, -1.0), pub=np.full(2, 1.0), options=opts,
-             device="cpu")
+def test_options_outside_the_slice_raise(override, tmp_path, monkeypatch):
+    """The options of the user surface (slice 5: ``temperature``, ``fvals``,
+    ``retry_max_fun_evals``, ``plot``), alone and beside options of earlier
+    slices, are accepted and take effect in a run of one or two
+    iterations: the tempered ELBOs and the final VP go through
+    `vp_train2real` at T=2, the pre-evaluated starting point enters the
+    logger without a call of the target, the retry evaluates its own
+    budget after the first run's, and the plot writes one PNG an
+    iteration (or, where plotting fails, turns itself off with the
+    reference's warning). One point an iteration and budgets of 11, a
+    retry's too: a budget that resolves to ``fun_eval_start`` (10 at D=2;
+    a smaller one is raised to ``min_fun_evals``, also 10) divides by zero
+    in the reference's GP-training schedule, and so in the port's (ROADMAP
+    Queue 3 x)."""
+    import warnings
+
+    from vbmc_tpu_torch import main as tmain
+    calls, t2r = [], []
+    noisy = override.get("specify_target_noise", False)
+
+    def logp(x):
+        calls.append(np.array(x))
+        y = -float(np.sum(x ** 2))
+        return (y, 1.0) if noisy else y
+
+    real_t2r = tmain.vp_train2real
+    monkeypatch.setattr(tmain, "vp_train2real",
+                        lambda vp, T, *a: t2r.append(T) or real_t2r(vp, T, *a))
+    monkeypatch.setenv("VBMC_PLOT_DIR", str(tmp_path))
+    opts = VBMCOptions(display="off", max_fun_evals=11, seed=1,
+                       fun_evals_per_iter=1, min_final_components=2,
+                       **override)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = vbmc(logp, x0=np.zeros(2), plb=np.full(2, -1.0),
+                   pub=np.full(2, 1.0), options=opts, device="cpu")
+    assert np.isfinite(res.elbo) and np.isfinite(res.elbo_sd)
+    if "temperature" in override:
+        assert res.logger.T == 2
+        assert t2r == [2] * (res.iterations + 1)
+    else:
+        assert t2r == []
+    if "fvals" in override:
+        # 9 calls complete the initial design of 10, two points follow
+        assert res.logger.cache_count == 1
+        assert res.logger.y_orig[0] == 0.0
+        assert not any(np.all(c == 0.0) for c in calls)
+        assert res.func_count == len(calls) == 11
+    if "retry_max_fun_evals" in override:
+        # the second run evaluates its own budget
+        assert len(calls) == 11 + override["retry_max_fun_evals"]
+    elif "fvals" not in override:
+        assert len(calls) == res.func_count == 11
+    if override.get("plot"):
+        pngs = os.listdir(tmp_path)
+        off = [w for w in caught if "iteration plot disabled" in str(w.message)]
+        assert len(pngs) == res.iterations or (off and not pngs)
 
 
 def test_warm_start_from_a_vp_raises():
     """`vbmc_tpu.vbmc` takes a variational posterior as ``x0``
-    (`vbmc_tpu/main.py:372-382`); the port names the item still to port."""
+    (`vbmc_tpu/main.py:372-382`), and so does the port: the first
+    evaluation is at the first of 100 draws from the VP with the seed + 77,
+    the next ones at the following draws."""
     from vbmc_tpu_torch.transforms import create_trinfo
-    from vbmc_tpu_torch.vp import make_vp
+    from vbmc_tpu_torch.vp import make_vp, vp_rnd
     ti = create_trinfo([-np.inf] * 2, [np.inf] * 2, [-1.0] * 2, [1.0] * 2)
     vp0 = make_vp(ti, np.zeros((2, 2)), 0.5, np.ones(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vbmc(lambda x: -float(np.sum(x ** 2)), x0=vp0, device="cpu")
+    draws = vp_rnd(vp0, torch.Generator().manual_seed(1 + 77), 100).numpy()
+    calls = []
+
+    def logp(x):
+        calls.append(np.array(x))
+        return -float(np.sum(x ** 2))
+
+    res = vbmc(logp, x0=vp0, options=VBMCOptions(
+        display="off", max_fun_evals=11, fun_evals_per_iter=1, seed=1,
+        min_final_components=2), device="cpu")
+    assert res.func_count == 11
+    np.testing.assert_allclose(np.array(calls[:10]), draws[:10], rtol=1e-12)
+
+
+def test_temperature_above_two_raises_as_the_reference_does():
+    """`vbmc_tpu/options.py:366`: only power posteriors with T in {1, 2}."""
+    import vbmc_tpu
+
+    def logp(x):
+        return -float(np.sum(x ** 2))
+
+    kw = dict(x0=np.zeros(2), plb=np.full(2, -1.0), pub=np.full(2, 1.0))
+    with pytest.raises(ValueError, match="temperature"):
+        vbmc_tpu.vbmc(logp, options=vbmc_tpu.VBMCOptions(display="off",
+                                                         temperature=3), **kw)
+    with pytest.raises(ValueError, match="temperature"):
+        vbmc(logp, options=VBMCOptions(display="off", temperature=3),
+             device="cpu", **kw)
 
 
 @pytest.mark.parametrize("override,match", [

@@ -73,36 +73,56 @@ class SearchBounds:
 def initial_design(gen: torch.Generator, logger: FunctionLogger,
                    n_evals: int, plb, pub,
                    x0_cache: Optional[np.ndarray] = None,
-                   init_design: str = "plausible") -> np.ndarray:
+                   fvals_cache: Optional[np.ndarray] = None,
+                   init_design: str = "plausible"):
     """First batch of evaluations: the starting points plus random draws
     (`initdesign_vbmc.m:10-28`), uniform in the plausible box
     ('plausible') or in a window of a tenth of it around the first
-    starting point ('narrow').
+    starting point ('narrow'). A starting point with a finite value in
+    ``fvals_cache`` enters the logger with that value; the target is not
+    called there.
 
-    A starting cache larger than ``n_evals`` is thinned by k-means, one
-    point of each cluster kept (`initdesign_vbmc.m:30-45`); the rest is
-    returned as the search cache that `get_search_points` draws on
-    (`activesample_vbmc.m:545-558`), an array (n_left, D) that may be
-    empty."""
+    A starting cache larger than ``n_evals`` is thinned by k-means, keeping
+    of each cluster its member of highest value when ``fvals_cache`` covers
+    the cache, else its first member (`initdesign_vbmc.m:30-45`); the rest
+    is the search cache that `get_search_points` draws on
+    (`activesample_vbmc.m:545-558`). Returns (search_cache (n_left, D),
+    search_cache_y (n_left,)): the leftover points, possibly none, and
+    their values (NaN where none was given)."""
     D = plb.shape[0]
     pts = []
+    fv = (np.asarray(fvals_cache, float).ravel()
+          if fvals_cache is not None else None)
     leftover = np.zeros((0, D))
+    leftover_y = np.zeros(0)
     if x0_cache is not None and len(x0_cache):
         Xc = np.asarray(x0_cache, float).reshape(-1, D)
         if Xc.shape[0] > n_evals and n_evals > 0:
             _, assign = kmeans(Xc, n_evals, seed=0)
+            covered = fv is not None and fv.size >= Xc.shape[0]
             chosen = np.zeros(Xc.shape[0], dtype=bool)
             for c in range(n_evals):
                 members = np.where(assign == c)[0]
-                if members.size:
-                    chosen[members[0]] = True
+                if members.size == 0:
+                    continue
+                if covered:
+                    best = members[int(np.nanargmax(
+                        np.where(np.isfinite(fv[members]), fv[members],
+                                 -np.inf)))]
+                else:
+                    best = members[0]
+                chosen[best] = True
             # top up an underfull selection with unchosen points
             for j in np.where(~chosen)[0]:
                 if chosen.sum() >= n_evals:
                     break
                 chosen[j] = True
             leftover = Xc[~chosen]
-            Xc = Xc[chosen]
+            leftover_y = (fv[~chosen] if covered
+                          else np.full(leftover.shape[0], np.nan))
+            idx = np.where(chosen)[0]
+            Xc = Xc[idx]
+            fv = fv[idx] if fv is not None and fv.size else None
         pts.append(Xc)
     n_rand = max(n_evals - sum(p.shape[0] for p in pts), 0)
     if n_rand > 0:
@@ -116,9 +136,12 @@ def initial_design(gen: torch.Generator, logger: FunctionLogger,
             pts.append(np.clip(Xr, plb, pub))
         else:
             raise ValueError(f"Unknown initial design '{init_design}'.")
-    for x in np.concatenate(pts, axis=0)[:n_evals]:
-        logger.evaluate(x)
-    return leftover
+    for i, x in enumerate(np.concatenate(pts, axis=0)[:n_evals]):
+        if fv is not None and i < len(fv) and np.isfinite(fv[i]):
+            logger.add(x, float(fv[i]))
+        else:
+            logger.evaluate(x)
+    return leftover, leftover_y
 
 
 def get_search_points(gen: torch.Generator, n_search: int,

@@ -1,7 +1,10 @@
 """The VBMC orchestrator (cf. `vbmc_tpu/main.py`, `vbmc.m:506-882`), for
 noiseless targets and for noisy ones that return their noise SD or leave it
 to the GP, with every GP mean family, the integrated mean, output warping
-("fitness shaping"), bandwidth smoothing and every acquisition.
+("fitness shaping"), bandwidth smoothing and every acquisition; warm starts
+from a variational posterior, pre-evaluated starting points (``fvals``),
+tempered targets, the retry from the best posterior, the live plot, and
+the multi-run sweep `vbmc_sweep`.
 
 Orchestration (state machine, warm-up, termination, warp-undo
 transactions, the acquisition hedge) is host Python on numpy, in the port's
@@ -35,7 +38,7 @@ from vbmc_tpu_torch.gp.fit import train_gp, TrainOptions
 from vbmc_tpu_torch.gp.means import fix_center_from_data
 from vbmc_tpu_torch.gp.predict import gp_predict
 from vbmc_tpu_torch.vp import (VariationalPosterior, make_vp, vp_moments,
-                               vp_kldiv, vp_rnd)
+                               vp_kldiv, vp_rnd, is_valid_vp, vp_train2real)
 from vbmc_tpu_torch.vpoptim import vpoptimize
 from vbmc_tpu_torch.active_sample import (initial_design, active_sample,
                                           SearchBounds, gp_reupdate)
@@ -150,23 +153,6 @@ def bounds_check(x0, lb, ub, plb, pub, D):
     if not np.all((lb <= plb) & (plb < pub) & (pub <= ub)):
         raise ValueError("Bounds must satisfy LB <= PLB < PUB <= UB.")
     return x0, lb, ub, plb, pub
-
-
-def _check_slice(opt: ResolvedOptions):
-    """Options whose code is not ported yet raise, naming the ROADMAP item;
-    none is silently ignored."""
-    def no(what, item):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                  f"Queue 1, item 12: {item})")
-
-    if opt.plot:
-        no("plot", "plotting.py")
-    if opt.temperature != 1:
-        no("temperature > 1", "vp_power and vp_train2real")
-    if opt.retry_max_fun_evals > 0:
-        no("retry_max_fun_evals > 0", "warm starts from a VP")
-    if opt.fvals is not None:
-        no("fvals (pre-evaluated starting points)", "warm starts and fvals")
 
 
 def _check_options(opt: ResolvedOptions):
@@ -377,7 +363,11 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     device is the card unless the caller names another (``device="cpu"``);
     without a card the default raises, and nothing moves to the CPU on its
     own. Randomness is one `torch.Generator` on that device seeded from
-    ``options.seed``."""
+    ``options.seed``.
+
+    ``x0`` may be a variational posterior (a warm start): 100 draws from it
+    (seeded with ``options.seed + 77``) give the starting points and, when
+    none are given, the plausible bounds (their 5% and 95% quantiles)."""
     t0 = time.monotonic()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -392,10 +382,17 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     torch.backends.cudnn.allow_tf32 = False
     if options is None:
         options = VBMCOptions()
-    if isinstance(x0, VariationalPosterior):
-        raise NotImplementedError(
-            "a warm start from a variational posterior is not ported yet "
-            "(ROADMAP Queue 1, item 12: warm starts from a VP)")
+    x0_from_vp = None
+    if is_valid_vp(x0):
+        gen0 = torch.Generator(device=x0.mu.device)
+        gen0.manual_seed(options.seed + 77)
+        with torch.no_grad():
+            Xvp = to_np(vp_rnd(x0, gen0, 100, orig_flag=True))
+        x0 = Xvp[:1]
+        if plb is None or pub is None:
+            plb = np.quantile(Xvp, 0.05, axis=0)
+            pub = np.quantile(Xvp, 0.95, axis=0)
+        x0_from_vp = Xvp
     if x0 is not None:
         x0 = np.atleast_2d(np.asarray(x0, float))
         D = x0.shape[1]
@@ -405,11 +402,14 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         raise ValueError("Provide x0, or plausible bounds PLB and PUB.")
 
     opt = options.resolve(D)
-    _check_slice(opt)
     _check_options(opt)
     x0, lb, ub, plb, pub = bounds_check(x0, lb, ub, plb, pub, D)
     if x0 is None or not np.all(np.isfinite(x0)):
         x0 = 0.5 * (plb + pub)[None, :]
+    if x0_from_vp is not None:
+        # the other draws join as extra starting points, inside the bounds
+        x0 = np.concatenate([x0, np.clip(x0_from_vp[1:opt.fun_eval_start],
+                                         lb, ub)], axis=0)
 
     trinfo = create_trinfo(lb, ub, plb, pub,
                            bounded_type=_TRANSFORM_IDS[opt.bounded_transform],
@@ -602,9 +602,12 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         if state.skip_active_sampling:
             state.skip_active_sampling = False
         elif gp is None:
-            cache_t = initial_design(gen, logger, opt.fun_eval_start, plb_t,
-                                     pub_t, x0_cache=direct_np(trinfo, x0),
-                                     init_design=opt.init_design)
+            cache_t, _ = initial_design(
+                gen, logger, opt.fun_eval_start, plb_t, pub_t,
+                x0_cache=direct_np(trinfo, x0),
+                fvals_cache=(np.asarray(opt.fvals, float)
+                             if opt.fvals is not None else None),
+                init_design=opt.init_design)
             if len(cache_t):
                 # kept in original space, so that it survives input warps
                 search_cache = inverse_np(logger.trinfo, cache_t)
@@ -678,6 +681,10 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         vp = res.vp
         state.vp_K = int(to_np(vp.kmask).sum())
         elbo, elbo_sd = res.elbo, res.elbo_sd
+        if opt.temperature > 1:
+            # the trace and the stopping rules see the real posterior's ELBO
+            _, elbo, elbo_sd = vp_train2real(vp, opt.temperature, elbo,
+                                             elbo_sd)
         timers["variational_fit"] += time.monotonic() - t
 
         # ------------------------------------------------------- finalize
@@ -771,6 +778,17 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                 is_finished = True
                 msg = msg or "Inference stopped by the user OutputFcn."
 
+        # Live iteration plot (`private/vbmc_iterplot.m`). A failed plot
+        # turns plotting off with a warning, as in the reference.
+        if opt.plot:
+            from vbmc_tpu_torch.plotting import iteration_plot
+            try:
+                iteration_plot(stats, vp, logger)
+            except Exception as e:
+                import warnings
+                warnings.warn(f"iteration plot disabled: {e!r}")
+                opt.plot = False
+
         if display:
             print(f" {it:9d} {logger.func_count:8d} {elbo:14.2f} "
                   f"{elbo_sd:13.2f} {sKL:15.2f} {state.vp_K:6d} "
@@ -816,6 +834,28 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         print(f"Estimated ELBO: {float(elbo):.3f} +/- {float(elbo_sd):.3f} "
               f"[{convergence} convergence, {logger.func_count} fcn evals]")
 
+    # Automatic retry from the best posterior (`vbmc.m:968-1009`), on the
+    # same device and dtype. Unlike the reference (`vbmc_tpu/main.py:
+    # 908-917`) no `except` keeps the first result when the second run
+    # fails: a failure there raises (ROADMAP Queue 3 u).
+    if exitflag < 1 and opt.retry_max_fun_evals > 0:
+        if display:
+            print("Attempting a second inference run from the current "
+                  "posterior.")
+        retry_user = dataclasses.replace(
+            options, max_fun_evals=opt.retry_max_fun_evals,
+            retry_max_fun_evals=0, seed=opt.seed + 1)
+        res2 = vbmc(fun, vp, lb, ub, None, None, options=retry_user,
+                    device=device, dtype=dtype)
+        if res2.exitflag >= 1 or (res2.elbo - opt.best_safe_sd
+                                  * res2.elbo_sd) > (elbo - opt.best_safe_sd
+                                                     * elbo_sd):
+            res2.timers["first_run"] = time.monotonic() - t0
+            return res2
+
+    if opt.temperature > 1:
+        vp, elbo, elbo_sd = vp_train2real(vp, opt.temperature, elbo, elbo_sd)
+
     timers["final_boost"] = time.monotonic() - t_final
     timers["total"] = time.monotonic() - t0
     overhead = (timers["total"] / logger.total_fun_eval_time - 1.0
@@ -828,3 +868,36 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         idx_best=idx_best, timers=timers, overhead=overhead,
         warps_made=warps["made"], warps_undone=warps["undone"],
         quick_updates=quick_updates)
+
+
+def vbmc_sweep(fun, x0=None, lb=None, ub=None, plb=None, pub=None,
+               options: Optional[VBMCOptions] = None, n_runs: int = 3,
+               dispatch: str = "local", *, device="cuda",
+               dtype=torch.float64, **dispatch_kwargs):
+    """Multi-run validation sweep (the `vbmc_diagnostics` workflow): run VBMC
+    ``n_runs`` times with seeds ``options.seed + 1000 i`` and cross-check
+    the runs, each on ``device`` in ``dtype``.
+
+    dispatch="local": the runs one after the other in this process; returns
+    (DiagnosticsResult, [VBMCResult, ...]).
+    dispatch="subprocess": each run in a worker process of its own
+    (`parallel/launch.py`; ``launcher``, ``env_per_run``, ``timeout``,
+    ``workdir`` and ``python`` go to `dispatch_runs`). The target and any
+    callable option must be picklable. Returns (DiagnosticsResult,
+    [(vp, elbo, elbo_sd, meta), ...]).
+    """
+    from vbmc_tpu_torch.diagnostics import vbmc_diagnostics
+
+    if options is None:
+        options = VBMCOptions()
+    if dispatch == "subprocess":
+        from vbmc_tpu_torch.parallel.launch import dispatch_runs
+        return dispatch_runs(fun, x0, lb, ub, plb, pub, options=options,
+                             n_runs=n_runs, device=device, dtype=dtype,
+                             **dispatch_kwargs)
+    results = []
+    for i in range(n_runs):
+        opts_i = dataclasses.replace(options, seed=options.seed + 1000 * i)
+        results.append(vbmc(fun, x0, lb, ub, plb, pub, options=opts_i,
+                            device=device, dtype=dtype))
+    return vbmc_diagnostics(results), results

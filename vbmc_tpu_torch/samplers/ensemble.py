@@ -1,10 +1,13 @@
-"""Complementary-halves ensemble slice sampling (cf.
-`vbmc_tpu/samplers/ensemble.py`, `utils/eissample_lite.m`): the GP
-hyperparameter sampler for nhyp > 20.
+"""Ensemble slice sampling (cf. `vbmc_tpu/samplers/ensemble.py`,
+`utils/eissample_lite.m`): W walkers, each moved by slice sampling along the
+difference of two other walkers.
 
-The W walkers split into two halves; each half moves along differential
-directions drawn from the other half, every mover in lock-step, so each
-shrinkage step is one batched log-density evaluation.
+`ensemble_slice_final` is the GP hyperparameter sampler for nhyp > 20: the
+walkers split into two halves, each half moves along directions drawn from
+the other half, every mover in lock-step, so each shrinkage step is one
+batched log-density evaluation. `ensemble_slice_sample` (the GP-surrogate
+sampler of `gp/sample.py`) moves the walkers one after the other and keeps
+every sweep.
 """
 
 from __future__ import annotations
@@ -77,3 +80,33 @@ def ensemble_slice_final(gen: torch.Generator, logpdf, x0s: torch.Tensor,
         xs = torch.cat([xs[:H], b])
         lps = torch.cat([lps[:H], lb_])
     return xs, lps
+
+
+def ensemble_slice_sample(gen: torch.Generator, logpdf, x0s: torch.Tensor,
+                          lb, ub, n_steps: int, mu_scale: float = 1.0):
+    """Advance W walkers (rows of x0s) ``n_steps`` sweeps, each sweep moving
+    the walkers in turn along the difference of two distinct other walkers
+    of the current population. ``logpdf`` maps (B, D) -> (B,). Returns
+    (walkers (n_steps, W, D), logps (n_steps, W)); thin and flatten at the
+    caller."""
+    W, D = x0s.shape
+    dev = x0s.device
+    xs = x0s.clone()
+    lps = logpdf(xs)
+    walkers, logps = [], []
+    for _ in range(n_steps):
+        for w in range(W):
+            i = int(torch.randint(0, W - 1, (), generator=gen, device=dev))
+            j = int(torch.randint(0, W - 2, (), generator=gen, device=dev))
+            i = i + 1 if i >= w else i
+            j = j + 1 if j >= min(i, w) else j
+            j = j + 1 if j >= max(i, w) else j
+            direction = mu_scale * (xs[i] - xs[j])
+            x_new, lp_new = _slice_direction_batch(
+                gen, logpdf, xs[w:w + 1], lps[w:w + 1], direction[None, :],
+                lb, ub)
+            xs = torch.cat([xs[:w], x_new, xs[w + 1:]])
+            lps = torch.cat([lps[:w], lp_new, lps[w + 1:]])
+        walkers.append(xs)
+        logps.append(lps)
+    return torch.stack(walkers), torch.stack(logps)

@@ -1,6 +1,7 @@
 """Variational posterior: a mixture of K axis-rescaled Gaussians in padded,
-masked tensors (cf. `vbmc_tpu/vp.py`, `vbmc_rnd.m`, `vbmc_moments.m`,
-`vbmc_kldiv.m`).
+masked tensors, and the public posterior queries (cf. `vbmc_tpu/vp.py`,
+`vbmc_rnd.m`, `vbmc_pdf.m`, `vbmc_moments.m`, `vbmc_mode.m`,
+`vbmc_kldiv.m`, `vbmc_mtv.m`, `vbmc_power.m`).
 
 In transformed space q(x) = sum_k w_k N(x; mu_k, sigma_k^2 diag(lambda^2)).
 Components beyond the active count have w = 0 and a false ``kmask``.
@@ -15,7 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vbmc_tpu_torch.transforms import Trinfo, inverse
+from vbmc_tpu_torch.transforms import (Trinfo, direct, inverse,
+                                       log_abs_det_jacobian)
 from vbmc_tpu_torch.utils.math import mvn_kl, to_np
 
 _LOG2PI = 1.8378770664093453
@@ -110,13 +112,43 @@ def vp_log_pdf_trans(vp: VariationalPosterior, X: torch.Tensor,
 
 
 def _chi2(gen: torch.Generator, df: float, shape, like: torch.Tensor):
-    """Chi-square draws with integer ``df`` as sums of squared normals."""
+    """Chi-square draws from ``gen`` for any df > 0: a sum of df squared
+    normals where df is an integer, else twice a Gamma(df / 2) draw (the
+    reference draws the gamma for every df, `vbmc_tpu/vp.py:153-156`; the
+    sums keep the stream of the integer df the search sets use, until the
+    card-against-CPU rule that the new stream trips is set from readings:
+    ROADMAP Queue 3 z)."""
     k = int(df)
-    if k != df or k < 1:
-        raise NotImplementedError(f"Student-t draws need an integer df (got {df})")
-    z = torch.randn((k,) + tuple(shape), generator=gen, device=like.device,
-                    dtype=like.dtype)
-    return (z * z).sum(0)
+    if k == df and k >= 1:
+        z = torch.randn((k,) + tuple(shape), generator=gen,
+                        device=like.device, dtype=like.dtype)
+        return (z * z).sum(0)
+    return 2.0 * _gamma(gen, df / 2.0, shape, like)
+
+
+def _gamma(gen: torch.Generator, a: float, shape, like: torch.Tensor):
+    """Gamma(a, 1) draws for any a > 0 from ``gen``: Marsaglia and Tsang's
+    rejection method, for a < 1 at shape a + 1 times U^(1/a)."""
+    if not a > 0:
+        raise ValueError(f"the gamma shape must be positive (got {a})")
+    dev, dt = like.device, like.dtype
+    d = (a + 1.0 if a < 1.0 else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = torch.empty(shape, device=dev, dtype=dt).flatten()
+    todo = torch.arange(out.numel(), device=dev)
+    while todo.numel():
+        n = todo.numel()
+        x = torch.randn(n, generator=gen, device=dev, dtype=dt)
+        u = torch.rand(n, generator=gen, device=dev, dtype=dt)
+        v = (1.0 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                        + d * torch.log(v.clamp_min(torch.finfo(dt).tiny)))
+        out[todo[ok]] = (d * v)[ok]
+        todo = todo[~ok]
+    if a < 1.0:
+        u = torch.rand(out.shape, generator=gen, device=dev, dtype=dt)
+        out = out * u ** (1.0 / a)
+    return out.reshape(shape)
 
 
 def vp_rnd(vp: VariationalPosterior, gen: torch.Generator, N: int,
@@ -142,6 +174,23 @@ def vp_rnd(vp: VariationalPosterior, gen: torch.Generator, N: int,
         eps = eps * torch.sqrt(df / _chi2(gen, df, (N, 1), eps))
     X = vp.mu[idx] + vp.sigma[idx][:, None] * vp.lam[None, :] * eps
     return inverse(vp.trinfo, X) if orig_flag else X
+
+
+def vp_pdf(vp: VariationalPosterior, X, orig_flag: bool = True,
+           log_flag: bool = False, df: float = 0.0) -> torch.Tensor:
+    """Density at points X (M, D) on the VP's device; with ``orig_flag`` X is
+    in original space and the Jacobian correction applies
+    (`vbmc_pdf.m:113-124`)."""
+    if not isinstance(X, torch.Tensor):
+        X = np.array(X, np.float64)
+    X = torch.atleast_2d(torch.as_tensor(X, device=vp.mu.device,
+                                         dtype=vp.mu.dtype))
+    if orig_flag:
+        U = direct(vp.trinfo, X)
+        lp = vp_log_pdf_trans(vp, U, df=df) - log_abs_det_jacobian(vp.trinfo, U)
+    else:
+        lp = vp_log_pdf_trans(vp, X, df=df)
+    return lp if log_flag else torch.exp(lp)
 
 
 def vp_moments(vp: VariationalPosterior, orig_flag: bool = True,
@@ -178,3 +227,100 @@ def vp_kldiv(vp1: VariationalPosterior, vp2: VariationalPosterior,
     kl1 = (vp_log_pdf_trans(vp1, X1) - vp_log_pdf_trans(vp2, X1)).mean()
     kl2 = (vp_log_pdf_trans(vp2, X2) - vp_log_pdf_trans(vp1, X2)).mean()
     return torch.stack([kl1.clamp_min(0.0), kl2.clamp_min(0.0)])
+
+
+def vp_mode(vp: VariationalPosterior, orig_flag: bool = True) -> torch.Tensor:
+    """Posterior mode (`vbmc_mode.m`): L-BFGS from every component mean at
+    once (with infinite bounds the optimiser works on x itself), the best
+    active start kept. With ``orig_flag`` the original-space density is
+    maximised, parameterised in transformed coordinates."""
+    from vbmc_tpu_torch.optim import minimize_lbfgs_bounded
+
+    def nlp(x):
+        lp = vp_log_pdf_trans(vp, x)
+        if orig_flag:
+            lp = lp - log_abs_det_jacobian(vp.trinfo, x)
+        return -lp
+
+    inf = torch.full((vp.D,), math.inf, device=vp.mu.device,
+                     dtype=vp.mu.dtype)
+    xs, fs = minimize_lbfgs_bounded(nlp, vp.mu.detach(), -inf, inf,
+                                    maxiter=60)
+    x_best = xs[torch.where(vp.kmask, fs, math.inf).argmin()]
+    return inverse(vp.trinfo, x_best[None, :])[0] if orig_flag else x_best
+
+
+def vp_mtv(vp1: VariationalPosterior, vp2: VariationalPosterior,
+           n_samples: int = 10 ** 5,
+           gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Marginal total variation per dimension (`vbmc_mtv.m`): 1-D KDEs of
+    draws from both VPs on a 2^13-point mesh, trapezoidal integration of
+    |p1 - p2| / 2. The draws come from the first VP's device; the KDEs run
+    on the host."""
+    from vbmc_tpu_torch.utils.kde import kde1d
+
+    if gen is None:
+        gen = torch.Generator(device=vp1.mu.device).manual_seed(0)
+    X1 = to_np(vp_rnd(vp1, gen, n_samples, orig_flag=True))
+    X2 = to_np(vp_rnd(vp2, gen, n_samples, orig_flag=True))
+    mtv = np.zeros(X1.shape[1])
+    nkde = 2 ** 13
+    for d in range(X1.shape[1]):
+        lo1, hi1 = X1[:, d].min(), X1[:, d].max()
+        lo2, hi2 = X2[:, d].min(), X2[:, d].max()
+        lo = min(lo1, lo2) - 0.1 * (max(hi1, hi2) - min(lo1, lo2))
+        hi = max(hi1, hi2) + 0.1 * (max(hi1, hi2) - min(lo1, lo2))
+        f1, grid = kde1d(X1[:, d], nkde, lo, hi)
+        f2, _ = kde1d(X2[:, d], nkde, lo, hi)
+        f1 = f1 / np.trapezoid(f1, grid)
+        f2 = f2 / np.trapezoid(f2, grid)
+        mtv[d] = 0.5 * np.trapezoid(np.abs(f1 - f2), grid)
+    return torch.as_tensor(mtv, device=vp1.mu.device, dtype=vp1.mu.dtype)
+
+
+def vp_train2real(vp: VariationalPosterior, temperature,
+                  elbo: float, elbo_sd: float):
+    """A tempered training posterior to the real one (`misc/vptrain2real.m`):
+    vp_real = vp^T with elbo_real = T elbo + lnZ_pow."""
+    if temperature is None or temperature == 1:
+        return vp, elbo, elbo_sd
+    vp_real, lnz_pow = vp_power(vp, n=temperature, return_lnz=True)
+    return vp_real, temperature * elbo + lnz_pow, temperature * elbo_sd
+
+
+def vp_power(vp: VariationalPosterior, n: int = 2, cutoff: float = 1e-6,
+             return_lnz: bool = False):
+    """The power posterior vp^n for n = 2 (`vbmc_power.m`): the square of a
+    Gaussian mixture is a K^2-component mixture, normalised by lnZ_pow;
+    pairs whose weight falls below ``cutoff`` times the largest are dropped.
+    Host arithmetic on the first K (active) components; the result lives on
+    the VP's device."""
+    if n == 1:
+        return vp
+    if n != 2:
+        raise NotImplementedError("only n in {1, 2} supported")
+    K = int(to_np(vp.kmask).sum())
+    w, mu, sigma = to_np(vp.w)[:K], to_np(vp.mu)[:K], to_np(vp.sigma)[:K]
+    lam = to_np(vp.lam)
+    D = lam.shape[0]
+    s2 = sigma ** 2
+    sj, sk = s2[:, None], s2[None, :]                         # (K, K)
+    ssum = sj + sk
+    pairs_mu = ((mu[:, None, :] * sk[..., None] + mu[None, :, :] * sj[..., None])
+                / ssum[..., None]).reshape(K * K, D)
+    pairs_sigma = np.sqrt(sj * sk / ssum).ravel()
+    d2 = (((mu[:, None, :] - mu[None, :, :]) / lam) ** 2).sum(-1) / ssum
+    logz = (-0.5 * D * np.log(2 * np.pi) - 0.5 * D * np.log(ssum)
+            - np.sum(np.log(lam)) - 0.5 * d2)
+    pw = (w[:, None] * w[None, :] * np.exp(logz)).ravel()
+    lnz_pow = float(np.log(max(pw.sum(), 1e-300)))
+    pw = pw / pw.sum()
+    keep = pw > cutoff * pw.max()
+    out = make_vp(vp.trinfo, pairs_mu[keep], pairs_sigma[keep], lam,
+                  w=pw[keep] / pw[keep].sum())
+    return (out, lnz_pow) if return_lnz else out
+
+
+def is_valid_vp(obj) -> bool:
+    """Whether ``obj`` is a variational posterior (`vbmc_isavp.m`)."""
+    return isinstance(obj, VariationalPosterior)
