@@ -37,46 +37,43 @@ Phases, each printing what it found; any failure exits non-zero:
    counted over the whole tiles it evaluates (masked training rows and the
    candidates a ragged M rounds up to included), and, in the log lines
    only, the time of the design before this one at the same shape.
-4. The noiseless path: `vbmc(..., device="cuda", dtype=torch.float64)` on a
+4. The stress configuration, `stress_d10`, starts in a child process
+   (`stress_child`, one host thread) and runs beside phases 5 to 7: the
+   D=10 / K=50 configuration of `tests/test_stress.py:14-26` (the
+   anisotropic 10-D Gaussian, lnZ 0; 250 evaluations pinned by
+   `min_fun_evals`; `min_final_components=50`; float64), held to that
+   file's assertions (|ELBO| < 1, RMSE < 0.5, each marginal variance
+   ratio in (0.35, 2.8), at least 50 components, at least 240
+   evaluations) and to one `prospective_acq` launch per acquired point.
+   Its line gives the timers, the seconds per iteration (`bench.py`'s
+   metric), the N, S and K rungs reached and the child's peak device
+   memory; it leaves its last GP and VP for phase 8. From here until it
+   is gathered nothing is timed.
+5. The noiseless path: `vbmc(..., device="cuda", dtype=torch.float64)` on a
    6-D Gaussian (50 evaluations; ensemble hyperparameter sampler) and a
    correlated 3-D cigar (`cigar_3d`, 40 evaluations; rotoscale warping is
    on, but this run makes no warp), each held to
    |ELBO - lnZ| < 0.5 and posterior-mean RMSE < 0.5; `prospective_acq` must
-   have launched at least once per acquired point. Then that kernel at the
-   shapes of the 6-D run's last GP.
+   have launched at least once per acquired point.
    Then `cigar3_families`: the cigar with `gp_mean_fun="negquadse"`,
    `fitness_shaping=True` and `search_acq_fcn=("prospective_log",)`, 60
    evaluations, held to the same gate: the sweep's dispatch must have
    chosen the plain evaluation, so both kernels must count 0 launches, and
    the run must make at least one rotoscale warp (`warp_gp_and_vp` on the
    negquadse-mean, output-warped GP, retraining and the undo check).
-   Then the posterior and GP queries at the last VP and GP of the 6-D run,
-   on the card against the same call on CPU copies, float64, each with
-   its CUDA-event time: `vp_pdf`, `vp_power`/`vp_train2real` (relative
-   1e-10), `vp_mode` (1e-6), `gp_quantile_pred` (1e-8), `gp_fmin` (the
-   point to 1e-6), and by their moments within Monte-Carlo error, as the
-   two generators differ: `gp_rnd`; `vp_mtv` of the last VP against the
-   first iteration's, six seeds a side; `gp_sample` and `mala_sample` by
-   the means of four independent chains a side.
-5. The noisy path: the same call with `specify_target_noise=True` on the
+6. The noisy path: the same call with `specify_target_noise=True` on the
    2-D half-normal with sigma=1 additive noise (the target returns its
    value and SD 1; 80 evaluations), held to the same gate; `viqr_acq` must
    have launched at least once per acquired point, at least one per-point
    full update must have run and at least one rotoscale warp must have
-   been made. Then that kernel at the shapes of the run's last GP.
+   been made.
    Then `halfnorm2_noisy_repeat`, beside the surface runs of phase 7 in
-   other processes: the same target with `max_repeated_observations=2`,
-   30 evaluations, same gate: the proposals take the host-side search
-   path, which must still sweep through `viqr_acq` once per acquired
-   point; the line says how many evaluations were repeats of a point
-   already observed.
-6. Every acquisition that needs no importance-sampling set (`prospective`,
-   `prospective_sn2`, `prospective_log`, `us`, `eig`) through
-   `evaluate_acquisition` at the last GP and VP of the `halfnorm2_noisy`
-   run on 8192 candidates: the card against the same call on CPU copies of
-   the tensors (float64, rtol 1e-8 plus 1e-6 of the largest value where
-   the GP's variance cancels, same argmin), with the CUDA-event time of
-   each.
+   other processes: the same target with `max_repeated_observations=2`
+   and `repeated_acq_discount=0.5` (the discount of
+   `tests/test_torch_e2e_repeat.py`), 30 evaluations, same gate: the
+   proposals take the host-side search path, which must still sweep
+   through `viqr_acq` once per acquired point, and at least one
+   evaluation must repeat a point already observed.
 7. The user surface on the 2-D Gaussian of `tests/test_e2e.py:21-36`
    (lnZ -1.3, mean (0.5, -0.3)), each run held to the same gate and, with
    the launch counts of the process it runs in, to one `prospective_acq`
@@ -90,14 +87,38 @@ Phases, each printing what it found; any failure exits non-zero:
      gives), then `mvn2_resume` (`save_result` of the tempered run,
      `load_checkpoint` onto the card, and a new run from its evaluations
      as `x0` and `fvals`, ten evaluations past the checkpoint's budget: the
-     target must not be called at a pre-evaluated point).
+     target must not be called at a pre-evaluated point), then
+     `mvn2_float32` (30 evaluations with `dtype=torch.float32`: a float32
+     posterior and GP, and one float32 `prospective_acq` launch per
+     acquired point).
    In this process, after `halfnorm2_noisy_repeat`: `mvn2_retry` (20
    evaluations end without stability, and the retry from the best
    posterior, a warm start from a VP, takes 30 more; the check fails
    unless the target saw more than 20 calls and the retry's own result,
    the one the gate holds, is the one returned).
-8. A JSON line with every kernel's numbers, then the last line
-   {"ok": true, "device": {...}}.
+8. Once every other process is gathered, the timed comparisons at the
+   runs' last GPs: `prospective_acq` against its plain version at the
+   shapes of the 6-D run's last GP and VP; the posterior and GP queries
+   at that GP and VP, on the card against the same call on CPU copies,
+   float64, each with its CUDA-event time: `vp_pdf`,
+   `vp_power`/`vp_train2real` (relative 1e-10), `vp_mode` (1e-6),
+   `gp_quantile_pred` (1e-8), `gp_fmin` (the point to 1e-6), and by their
+   moments within Monte-Carlo error, as the two generators differ:
+   `gp_rnd`; `vp_mtv` of the last VP against the first iteration's, six
+   seeds a side; `gp_sample` and `mala_sample` by the means of four
+   independent chains a side. Then `viqr_acq` at the shapes of the noisy
+   run's last GP, and every acquisition that needs no importance-sampling
+   set (`prospective`, `prospective_sn2`, `prospective_log`, `us`, `eig`)
+   through `evaluate_acquisition` there on 8192 candidates: the card
+   against the same call on CPU copies of the tensors (float64, rtol 1e-8
+   plus 1e-6 of the largest value where the GP's variance cancels, same
+   argmin), with the CUDA-event time of each. Last, `prospective_acq` at
+   the shapes of the stress run's last GP and VP.
+9. A JSON line with every kernel's numbers (the headline ones at the
+   stress run's last GP for `prospective_acq` and at the noisy run's for
+   `viqr_acq`; launches summed over every run of this process and of the
+   two child processes; the sweep's workers are not counted), then the
+   last line {"ok": true, "device": {...}}.
 
 The launch counts of a path are set to 0 just before it runs and read just
 after; the comparisons' own launches do not count. No kernel or query is
@@ -514,7 +535,8 @@ def gate(torch, vp, elbo, lnz, mean_true):
 
 def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
                options, lb=None, ub=None, plb=None, pub=None, acquired=None,
-               note="", min_warps=0, require=None):
+               note="", min_warps=0, require=None, tol_elbo=0.5,
+               dtype=None):
     """One `vbmc` run on the card, held to the gate. ``kernel``: the launch
     counter the run must advance at least once per acquired point; None for
     a run whose sweeps the dispatch gives to the plain evaluation, which
@@ -523,19 +545,23 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
     initial design (a retry, pre-evaluated points); ``note``: a function of
     the result giving more text for the log line; ``min_warps``: the
     rotoscale warps the run must make; ``require``: a further condition,
-    a function of the result."""
+    a function of the result; ``tol_elbo``: the gate's bound on |ELBO -
+    lnZ|; ``dtype``: the run's (float64 by default), whose launches are
+    the ones counted."""
     from vbmc_tpu_torch.main import vbmc
 
+    dtype = dtype or torch.float64
+    f32 = dtype == torch.float32
     torch.cuda.reset_peak_memory_stats()
-    kernels.prospective_acq.launches = 0
-    kernels.viqr_acq.launches = 0
+    for k in (kernels.prospective_acq, kernels.viqr_acq):
+        k.launches = k.launches_f32 = 0
     t = time.monotonic()
     res = vbmc(logp, x0=x0, lb=lb, ub=ub, plb=plb, pub=pub, options=options,
-               device="cuda", dtype=torch.float64)
+               device="cuda", dtype=dtype)
     torch.cuda.synchronize()
     secs = time.monotonic() - t
-    launches = {"prospective_acq": kernels.prospective_acq.launches,
-                "viqr_acq": kernels.viqr_acq.launches}
+    launches = {k.name: k.launches_f32 if f32 else k.launches
+                for k in (kernels.prospective_acq, kernels.viqr_acq)}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     err, rmse = gate(torch, res.vp, res.elbo, lnz, mean_true)
     if acquired is None:
@@ -546,16 +572,16 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
         launched_ok = not any(launches.values()) and acquired > 0
     else:
         launched_ok = launches[kernel] >= acquired > 0
-    ok = (err < 0.5 and rmse < 0.5 and np.isfinite(res.elbo) and launched_ok
-          and res.warps_made >= min_warps
+    ok = (err < tol_elbo and rmse < 0.5 and np.isfinite(res.elbo)
+          and launched_ok and res.warps_made >= min_warps
           and (require is None or bool(require(res))))
-    lg = res.logger
-    repeats = int(lg.nevals[:lg.Xn].sum()) - lg.Xn
+    repeats = _repeats(res)
     log(f"[e2e] {name}: elbo {res.elbo:.4f} (lnZ {lnz:.4f}, err {err:.4f}) "
         f"elbo_sd {res.elbo_sd:.4f} rmse {rmse:.4f} func_count "
         f"{res.func_count} iterations {res.iterations} seconds {secs:.1f} "
         f"{note(res) + ' ' if note else ''}"
-        f"peak_device_MiB {peak_mib:.1f} kernel_launches {launches} "
+        f"peak_device_MiB {peak_mib:.1f} "
+        f"{'float32_' if f32 else ''}kernel_launches {launches} "
         f"acquired_points {acquired} repeated_observations {repeats} "
         f"quick_updates {res.quick_updates} "
         f"warps_made {res.warps_made} (at least {min_warps}) warps_undone "
@@ -564,29 +590,33 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: end-to-end gate failed")
-    return res, launches.get(kernel, 0), secs
+    return res, launches.get(kernel, 0), secs, peak_mib
 
 
-def _candidates(torch, res, D):
-    """A real 2^13 candidate set around the last VP of a run."""
+def _last(res):
+    """(gp, vp, ymax) of a run's last iteration."""
+    it = res.stats.iterations[-1]
+    return it.gp, it.vp, float(res.logger.ymax)
+
+
+def _candidates(torch, gp, vp, D):
+    """A real 2^13 candidate set around a run's last VP and GP."""
     from vbmc_tpu_torch.active_sample import _gen_candidates
 
-    gp_last = res.stats.iterations[-1].gp
-    vp_last = res.stats.iterations[-1].vp
     gen = torch.Generator(device="cuda").manual_seed(1)
     lbig = torch.full((D,), -1e3, device="cuda", dtype=torch.float64)
     with torch.no_grad():
-        Xs, _ = _gen_candidates(gen, vp_last, gp_last, lbig, -lbig, 8192,
-                                2048, 2048, 2048)
-    return gp_last, vp_last, Xs
+        Xs, _ = _gen_candidates(gen, vp, gp, lbig, -lbig, 8192, 2048, 2048,
+                                2048)
+    return Xs
 
 
 def phase_noiseless(torch, kernels):
-    """vbmc on the card on two noiseless targets, then `prospective_acq`
-    against its plain version at the shapes of the 6-D run's last GP and
-    VP. Returns the kernel's launches in the two runs and the comparison."""
+    """vbmc on the card on two noiseless targets and on the cigar with
+    another mean family and acquisition. Returns the kernel's launches in
+    the runs and the 6-D run's result, whose last GP and VP the timed
+    comparisons take later."""
     from vbmc_tpu_torch import VBMCOptions
-    from vbmc_tpu_torch.gp.config import GPConfig
 
     D = 6
     sd = np.linspace(0.6, 1.4, D)
@@ -596,7 +626,7 @@ def phase_noiseless(torch, kernels):
         return (-0.5 * np.sum((x / sd) ** 2) - 0.5 * D * np.log(2 * np.pi)
                 - np.sum(np.log(sd)) + lnz)
 
-    res6, l6, _ = run_target(
+    res6, l6, _, _ = run_target(
         torch, kernels, "prospective_acq", "mvn_6d", logp6, D,
         np.full(D, 0.3), lnz, np.zeros(D),
         VBMCOptions(display="off", max_fun_evals=50, seed=3,
@@ -615,7 +645,7 @@ def phase_noiseless(torch, kernels):
 
     # rotoscale warping is on in both cigars (the default): this run makes
     # no warp (nor did it at 60 evaluations), the next makes one at 60
-    _, l3, _ = run_target(
+    _, l3, _, _ = run_target(
         torch, kernels, "prospective_acq", "cigar_3d", logp_cigar,
         D3, np.full(D3, 0.25), 0.0, np.zeros(D3),
         VBMCOptions(display="off", max_fun_evals=40, seed=3,
@@ -632,14 +662,23 @@ def phase_noiseless(torch, kernels):
                     fitness_shaping=True,
                     search_acq_fcn=("prospective_log",)),
         plb=np.full(D3, -4.0), pub=np.full(D3, 4.0), min_warps=1)
+    return l6 + l3, res6
 
-    gp_last, vp_last, Xs = _candidates(torch, res6, D)
-    tag = (f"main-path N={gp_last.X.shape[0]} S={gp_last.hyp.shape[0]} "
+
+def compare_at_last_gp(torch, kernels, name, last, D):
+    """`prospective_acq` against its plain version at the shapes of a
+    noiseless run's last GP and VP, ``last`` = (gp, vp, ymax), on a real
+    candidate set."""
+    from vbmc_tpu_torch.gp.config import GPConfig
+
+    gp_last, vp_last, ymax = last
+    Xs = _candidates(torch, gp_last, vp_last, D)
+    tag = (f"{name} N={gp_last.X.shape[0]} S={gp_last.hyp.shape[0]} "
            f"K={vp_last.mu.shape[0]} M=8192 D={D} float64")
     r = compare_prospective(torch, kernels, tag, GPConfig(D=D), gp_last,
-                            vp_last, Xs, float(res6.logger.ymax), 1e-4)
+                            vp_last, Xs, ymax, 1e-4)
     r.pop("ref")
-    return l6 + l3, r, res6
+    return r
 
 
 ACQ_NAMES = ("prospective", "prospective_sn2", "prospective_log", "us",
@@ -724,7 +763,7 @@ def phase_acquisitions(torch, cfg, res, opt, gp, vp, Xs):
 
 
 def run_halfnorm_noisy(torch, kernels, name, evals, seed=1, min_warps=0,
-                       **kw):
+                       require=None, **kw):
     """vbmc on the card on the noisy 2-D half-normal (sigma=1 additive noise,
     the target returns its SD; `bench.py` block `halfnorm2_noisy`), with
     option values ``kw``: `run_target`'s result."""
@@ -746,41 +785,58 @@ def run_halfnorm_noisy(torch, kernels, name, evals, seed=1, min_warps=0,
                     min_final_components=20, specify_target_noise=True,
                     **kw),
         lb=np.zeros(D), ub=np.full(D, 10.0), plb=np.full(D, 0.05),
-        pub=np.full(D, 3.0), min_warps=min_warps)
+        pub=np.full(D, 3.0), min_warps=min_warps, require=require)
 
 
 def phase_noisy(torch, kernels):
-    """`halfnorm2_noisy` on the card (at least one per-point full update and
-    one warp), then `viqr_acq` against its plain version and every plain
-    acquisition against the CPU at the shapes of the run's last GP. Returns
-    the kernel's launches in the run and the comparison."""
+    """`halfnorm2_noisy` on the card: at least one per-point full update and
+    one warp. Returns the kernel's launches in the run and its result."""
+    res, launches, _, _ = run_halfnorm_noisy(
+        torch, kernels, "halfnorm2_noisy", 80, min_warps=1)
+    if res.quick_updates < 1:
+        raise AssertionError("halfnorm2_noisy: no per-point full update ran")
+    return launches, res
+
+
+def compare_noisy(torch, kernels, res):
+    """`viqr_acq` against its plain version and every plain acquisition
+    against the CPU at the shapes of the noisy run's last GP. Returns the
+    kernel's comparison."""
     from vbmc_tpu_torch import VBMCOptions
     from vbmc_tpu_torch.gp.config import GPConfig
 
     D = 2
-    res, launches, _ = run_halfnorm_noisy(torch, kernels, "halfnorm2_noisy",
-                                          80, min_warps=1)
-    if res.quick_updates < 1:
-        raise AssertionError("halfnorm2_noisy: no per-point full update ran")
-
-    gp_last, vp_last, Xs = _candidates(torch, res, D)
+    gp_last, vp_last, _ = _last(res)
+    Xs = _candidates(torch, gp_last, vp_last, D)
     cfg = GPConfig(D=D, user_noise=1)
     ais, sn2c = viqr_inputs(torch, cfg, gp_last, vp_last, Xs, seed=2)
-    tag = (f"main-path N={gp_last.X.shape[0]} S={gp_last.hyp.shape[0]} "
-           f"M=8192 D={D} Na={ais.Xa.shape[0]} float64")
+    tag = (f"halfnorm2_noisy N={gp_last.X.shape[0]} "
+           f"S={gp_last.hyp.shape[0]} M=8192 D={D} Na={ais.Xa.shape[0]} "
+           f"float64")
     r = compare_viqr(torch, kernels, tag, cfg, gp_last, ais, sn2c, Xs, 1e-4)
     r.pop("ref")
     phase_acquisitions(torch, cfg, res, VBMCOptions().resolve(D), gp_last,
                        vp_last, Xs)
-    return launches, r
+    return r
+
+
+def _repeats(res):
+    """Evaluations that measured a point already observed."""
+    lg = res.logger
+    return int(lg.nevals[:lg.Xn].sum()) - lg.Xn
 
 
 def phase_repeat(torch, kernels):
     """`halfnorm2_noisy_repeat`: the host-side search path, still one sweep
-    through `viqr_acq` a point. Returns the kernel's launches."""
-    _, launches, _ = run_halfnorm_noisy(torch, kernels,
-                                        "halfnorm2_noisy_repeat", 30,
-                                        max_repeated_observations=2)
+    through `viqr_acq` a point, with the winner's value discounted by half
+    where it repeats a point (the discount of
+    `tests/test_torch_e2e_repeat.py`), so that the re-measure branch runs:
+    at least one evaluation must repeat a point. Returns the kernel's
+    launches."""
+    _, launches, _, _ = run_halfnorm_noisy(
+        torch, kernels, "halfnorm2_noisy_repeat", 30,
+        max_repeated_observations=2, repeated_acq_discount=0.5,
+        require=lambda res: _repeats(res) >= 1)
     return launches
 
 
@@ -810,6 +866,9 @@ class Mvn2:
 RETRY_EVALS, RETRY_SECOND = 20, 30
 TEMPERED_EVALS = 30
 SWEEP_EVALS = 20
+# `mvn2_float32`: the same Gaussian in float32 (`tests/test_float32.py` at
+# the 2-D Gaussian of the surface runs).
+F32_EVALS = 30
 # Seconds the surface runs in other processes may take, and their host
 # threads: one each, so that three processes beside this one do not crowd
 # the host's cores with idle-spinning thread pools.
@@ -826,10 +885,22 @@ def _mvn2_opts(**kw):
 MVN2_BOX = dict(plb=np.full(Mvn2.D, -3.0), pub=np.full(Mvn2.D, 3.0))
 
 
+def _write_launches(workdir, name, launches):
+    """A child process's launch counts, for the parent's JSON line."""
+    with open(os.path.join(workdir, f"{name}_launches.json"), "w") as f:
+        json.dump(launches, f)
+
+
+def _read_launches(workdir, name):
+    with open(os.path.join(workdir, f"{name}_launches.json")) as f:
+        return json.load(f)
+
+
 def surface_child(workdir):
     """`mvn2_tempered`, then `mvn2_resume` from its checkpoint in
-    ``workdir``: the child process of `SurfaceAlongside`, on the card with
-    launch counts of its own (the parent has built the kernels). Returns
+    ``workdir``, then `mvn2_float32`: the child process of
+    `SurfaceAlongside`, on the card with launch counts of its own (the
+    parent has built the kernels), which it leaves in ``workdir``. Returns
     0; a failed check raises."""
     import torch
 
@@ -842,7 +913,7 @@ def surface_child(workdir):
     kernels.viqr_acq.load()
     D, lnz, mu = Mvn2.D, Mvn2.LNZ, Mvn2.MU
     f = Mvn2()
-    res_t, _, _ = run_target(
+    res_t, l_t, _, _ = run_target(
         torch, kernels, "prospective_acq", "mvn2_tempered", f, D,
         np.zeros(D), lnz, mu, _mvn2_opts(max_fun_evals=TEMPERED_EVALS,
                                          temperature=2), **MVN2_BOX,
@@ -859,7 +930,7 @@ def surface_child(workdir):
     g = Mvn2()
     pre = {tuple(x) for x in evals["X_orig"]}
     # the logger keeps tempered values, y / T (ROADMAP Queue 3 w)
-    run_target(
+    _, l_r, _, _ = run_target(
         torch, kernels, "prospective_acq", "mvn2_resume", g, D,
         evals["X_orig"], lnz, mu,
         _mvn2_opts(max_fun_evals=meta["func_count"] + 10, temperature=2,
@@ -870,7 +941,140 @@ def surface_child(workdir):
                          f"{res.logger.cache_count} target_calls "
                          f"{len(g.calls)} calls_at_pre_evaluated_points "
                          f"{sum(tuple(c) in pre for c in g.calls)}")
+
+    # the float32 lane: every tensor of the run, and so every launch, in
+    # float32 (`launches_f32` counts them)
+    _, l_f, _, _ = run_target(
+        torch, kernels, "prospective_acq", "mvn2_float32", Mvn2(), D,
+        np.zeros(D), lnz, mu, _mvn2_opts(max_fun_evals=F32_EVALS),
+        **MVN2_BOX, dtype=torch.float32,
+        require=lambda res: (res.vp.mu.dtype == torch.float32
+                             and res.stats.iterations[-1].gp.Binv.dtype
+                             == torch.float32),
+        note=lambda res: f"dtype {res.vp.mu.dtype} all_launches "
+                         f"{kernels.prospective_acq.launches}")
+    _write_launches(workdir, "surface_child",
+                    {"prospective_acq": l_t + l_r + l_f, "viqr_acq": 0})
     return 0
+
+
+# The D=10 / K=50 stress configuration of `tests/test_stress.py:14-26`: the
+# anisotropic 10-D Gaussian (lnZ 0), 250 evaluations pinned by
+# `min_fun_evals`, the final boost to 50 components; held to that file's
+# assertions (|ELBO| < 1, RMSE < 0.5, each variance ratio in (0.35, 2.8),
+# at least 50 components, at least 240 evaluations).
+STRESS_D = 10
+STRESS_SD = np.linspace(0.5, 2.0, STRESS_D)
+STRESS_EVALS = 250
+STRESS_RATIO = (0.35, 2.8)
+STRESS_TIMEOUT = 1000.0
+
+
+def stress_child(workdir):
+    """`stress_d10` on the card: the child process of `StressAlongside`
+    (the parent has built the kernels). Leaves in ``workdir`` its launch
+    counts, its numbers, and its last iteration's GP (`gp.npz`) and VP
+    (`vp.npz`, `serialize.save_vp`, with the logger's ymax in its
+    metadata), where the parent holds the kernel against its plain
+    version. Returns 0; a
+    failed check raises."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vbmc_tpu_torch import VBMCOptions, kernels
+    from vbmc_tpu_torch.serialize import save_vp
+    from vbmc_tpu_torch.vp import vp_moments
+
+    kernels.prospective_acq.load()
+    kernels.viqr_acq.load()
+    D, sd = STRESS_D, STRESS_SD
+
+    def mvn10(x):
+        return float(-0.5 * np.sum((x / sd) ** 2)
+                     - 0.5 * D * np.log(2 * np.pi) - np.sum(np.log(sd)))
+
+    def ratio(res):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        _, cov = vp_moments(res.vp, orig_flag=True, n_samples=10 ** 5,
+                            gen=gen)
+        return np.diag(cov.cpu().numpy()) / sd ** 2
+
+    def rungs(res):
+        its = res.stats.iterations
+        return dict(N=max(it.gp.X.shape[0] for it in its),
+                    S=max(it.gp.hyp.shape[0] for it in its),
+                    K_iterations=max(it.vp.k_max for it in its),
+                    K_final=res.vp.k_max)
+
+    def require(res):
+        r = ratio(res)
+        return (bool(np.all((r > STRESS_RATIO[0]) & (r < STRESS_RATIO[1])))
+                and int(res.vp.kmask.sum()) >= 50 and res.func_count >= 240)
+
+    res, launches, secs, peak = run_target(
+        torch, kernels, "prospective_acq", "stress_d10", mvn10, D,
+        np.full(D, 0.5), 0.0, np.zeros(D),
+        VBMCOptions(display="off", max_fun_evals=STRESS_EVALS, seed=3,
+                    min_fun_evals=STRESS_EVALS, min_final_components=50),
+        plb=np.full(D, -4.0), pub=np.full(D, 4.0), tol_elbo=1.0,
+        require=require,
+        note=lambda res: f"K {int(res.vp.kmask.sum())} (train "
+                         f"{int(res.vp_train.kmask.sum())}) variance_ratios "
+                         f"{np.round(ratio(res), 3).tolist()} "
+                         f"seconds_per_iteration "
+                         f"{res.timers['total'] / res.iterations:.3f} "
+                         f"rungs {rungs(res)}")
+    it = res.stats.iterations[-1]
+    save_vp(os.path.join(workdir, "vp.npz"), it.vp,
+            metadata={"ymax": float(res.logger.ymax)})
+    np.savez(os.path.join(workdir, "gp.npz"),
+             **{f: getattr(it.gp, f).cpu().numpy()
+                for f in ("X", "y", "s2", "mask", "hyp", "hyp_mask", "alpha",
+                          "L", "Binv", "sn2")})
+    _write_launches(workdir, "stress_child",
+                    {"prospective_acq": launches, "viqr_acq": 0,
+                     "seconds": secs, "peak_device_MiB": peak,
+                     "iterations": res.iterations, "rungs": rungs(res)})
+    return 0
+
+
+class StressAlongside:
+    """`stress_d10` in a child process (`stress_child`), started on entry
+    with one host thread; `gather` waits for it and loads its last GP and
+    VP onto the card. On exit the child is killed if it still runs."""
+
+    def __init__(self, workdir):
+        self.workdir = os.path.join(workdir, "stress")
+
+    def __enter__(self):
+        os.makedirs(self.workdir)
+        self.child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.stress_child(sys.argv[1]))", self.workdir],
+            cwd=ROOT, env={**os.environ, **ONE_THREAD})
+        return self
+
+    def gather(self, torch):
+        """The child's numbers and its run's last (gp, vp, ymax)."""
+        from vbmc_tpu_torch.gp.gp import GP
+        from vbmc_tpu_torch.serialize import load_vp
+
+        rc = self.child.wait(timeout=STRESS_TIMEOUT)
+        if rc != 0:
+            raise AssertionError(f"stress_child (stress_d10) exited {rc}")
+        out = _read_launches(self.workdir, "stress_child")
+        with np.load(os.path.join(self.workdir, "gp.npz")) as z:
+            gp = GP(**{k: torch.as_tensor(z[k], device="cuda")
+                       for k in z.files})
+        vp, meta = load_vp(os.path.join(self.workdir, "vp.npz"),
+                           device="cuda")
+        return out, (gp, vp, meta["ymax"])
+
+    def __exit__(self, *exc):
+        if self.child.poll() is None:
+            self.child.kill()
+            self.child.wait()
+        return False
 
 
 class SurfaceAlongside:
@@ -916,16 +1120,17 @@ class SurfaceAlongside:
 def phase_surface(torch, kernels, alongside):
     """The user surface on the card, each run on `Mvn2` held to the gate:
     here the retry from the best posterior (a warm start from a VP); then
-    the runs of ``alongside`` are gathered: the child's tempered target and
-    resume of its checkpoint through pre-evaluated values, and the run
-    sweep in two worker processes with its diagnostics."""
+    the runs of ``alongside`` are gathered: the child's tempered target,
+    resume of its checkpoint through pre-evaluated values and float32 run,
+    and the run sweep in two worker processes with its diagnostics.
+    Returns `prospective_acq`'s launches in the retry and the child."""
     from vbmc_tpu_torch import VBMCOptions
 
     D, lnz, mu = Mvn2.D, Mvn2.LNZ, Mvn2.MU
     start = VBMCOptions().resolve(D).fun_eval_start
 
     f = Mvn2()
-    run_target(
+    _, launches, _, _ = run_target(
         torch, kernels, "prospective_acq", "mvn2_retry", f, D, np.zeros(D),
         lnz, mu, _mvn2_opts(max_fun_evals=RETRY_EVALS,
                             retry_max_fun_evals=RETRY_SECOND), **MVN2_BOX,
@@ -941,8 +1146,10 @@ def phase_surface(torch, kernels, alongside):
 
     rc = alongside.child.wait(timeout=SURFACE_TIMEOUT)
     if rc != 0:
-        raise AssertionError(f"surface_child (mvn2_tempered, mvn2_resume) "
-                             f"exited {rc}")
+        raise AssertionError(f"surface_child (mvn2_tempered, mvn2_resume, "
+                             f"mvn2_float32) exited {rc}")
+    launches += _read_launches(alongside.workdir,
+                               "surface_child")["prospective_acq"]
     (diag, runs), secs = alongside.sweep.result()
     gates = [gate(torch, vp, elbo, lnz, mu) for vp, elbo, _, _ in runs]
     ok = all(e < 0.5 and r < 0.5 for e, r in gates)
@@ -957,6 +1164,7 @@ def phase_surface(torch, kernels, alongside):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("mvn2_sweep: end-to-end gate failed")
+    return launches
 
 
 def phase_queries(torch, res6):
@@ -1186,17 +1394,31 @@ def main():
     check_dmma(libs)
 
     results = phase_kernels(torch, kernels)
-    launches = {}
-    launches["prospective_acq"], main_p, res6 = phase_noiseless(torch,
+    launches = {"prospective_acq": 0, "viqr_acq": 0}
+    # From here until the stress run is gathered other processes share the
+    # card, so nothing is timed: the comparisons at the runs' last GPs and
+    # the queries come after.
+    with tempfile.TemporaryDirectory() as workdir:
+        with StressAlongside(workdir) as stress:
+            launches["prospective_acq"], res6 = phase_noiseless(torch,
                                                                 kernels)
+            launches["viqr_acq"], res_noisy = phase_noisy(torch, kernels)
+            with SurfaceAlongside(workdir) as alongside:
+                launches["viqr_acq"] += phase_repeat(torch, kernels)
+                launches["prospective_acq"] += phase_surface(
+                    torch, kernels, alongside)
+            out, last_stress = stress.gather(torch)
+        launches["prospective_acq"] += out["prospective_acq"]
+    log(f"[e2e] stress_d10 (in a child process): {out}")
+
+    r6 = compare_at_last_gp(torch, kernels, "mvn_6d", _last(res6), 6)
     phase_queries(torch, res6)
     del res6
-    launches["viqr_acq"], main_v = phase_noisy(torch, kernels)
-    # nothing is timed from here on: other processes share the card
-    with tempfile.TemporaryDirectory() as workdir, \
-            SurfaceAlongside(workdir) as alongside:
-        launches["viqr_acq"] += phase_repeat(torch, kernels)
-        phase_surface(torch, kernels, alongside)
+    main_v = compare_noisy(torch, kernels, res_noisy)
+    del res_noisy
+    main_p = compare_at_last_gp(torch, kernels, "stress_d10", last_stress,
+                                STRESS_D)
+    results["prospective_acq"].append(r6)
     main_path = {"prospective_acq": main_p, "viqr_acq": main_v}
 
     log(f"[env] nvidia-smi: {smi}")

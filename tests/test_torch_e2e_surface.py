@@ -2,7 +2,8 @@
 reference's gate (`tests/test_e2e.py:12-18`) on the 2-D Gaussian of
 `tests/test_e2e.py:21-36` (lnZ = -1.3, mean (0.5, -0.3)): a warm start
 from a variational posterior, the retry from the best posterior, a
-tempered target, a resume through pre-evaluated values, the run sweep in
+tempered target (its ELBO put into real space once, with and without the
+final boost), a resume through pre-evaluated values, the run sweep in
 process and through two worker processes, and the live plot. A file of its
 own, so that the test runner gives it a worker of its own."""
 
@@ -26,27 +27,31 @@ BOX = dict(plb=np.full(D, -3.0), pub=np.full(D, 3.0))
 
 
 class Target:
-    """The 2-D Gaussian, counting its calls; picklable for the workers."""
+    """The 2-D Gaussian, counting its calls; picklable for the workers.
+    ``lnz``: its log normaliser."""
 
-    def __init__(self):
+    def __init__(self, lnz=LNZ):
         self.calls = []
+        self.lnz = lnz
 
     def __call__(self, x):
         self.calls.append(np.array(x, float))
         return float(-0.5 * np.sum(((x - MU) / SD) ** 2)
-                     - 0.5 * D * np.log(2 * np.pi) - np.sum(np.log(SD)) + LNZ)
+                     - 0.5 * D * np.log(2 * np.pi) - np.sum(np.log(SD))
+                     + self.lnz)
 
 
-def _gate(res):
+def _gate(res, lnz=LNZ):
     mean, _ = vp_moments(res.vp, orig_flag=True, n_samples=10 ** 5,
                          gen=torch.Generator().manual_seed(0))
     rmse = float(np.sqrt(np.mean((mean.numpy() - MU) ** 2)))
-    assert abs(res.elbo - LNZ) < 0.5, res.elbo
+    assert abs(res.elbo - lnz) < 0.5, res.elbo
     assert rmse < 0.5, mean
 
 
 def _opts(**kw):
-    return VBMCOptions(display="off", seed=1, min_final_components=10, **kw)
+    return VBMCOptions(**{"display": "off", "seed": 1,
+                          "min_final_components": 10, **kw})
 
 
 def test_warm_start_from_a_vp():
@@ -110,6 +115,39 @@ def test_tempered_run_then_resume_through_fvals(tmp_path):
     assert res2.logger.cache_count == 10
     assert len(g.calls) == res2.func_count == 40
     _gate(res2)
+
+
+TEMPERED_LNZ = 5.0
+
+
+@pytest.mark.parametrize("min_final_components", [1, 10])
+def test_tempered_elbo_reaches_real_space_once(min_final_components,
+                                               record_property):
+    """`temperature=2` on the Gaussian shifted to lnZ = 5. Each iteration's
+    ELBO is stored in real space (`vp_train2real`), so at the end only the
+    boost's training-space result is converted; with
+    ``min_final_components=1`` no boost runs and only the VP is. The
+    reference converts the stored value a second time (T ELBO + lnZ_pow;
+    ROADMAP Queue 3 aa): its ELBO is recorded here, not held to the gate."""
+    res = vbmc(Target(TEMPERED_LNZ), x0=np.zeros(D), device="cpu",
+               options=_opts(max_fun_evals=30, temperature=2,
+                             min_final_components=min_final_components),
+               **BOX)
+    # the best iteration's VP has fewer than 10 components: the boost runs
+    # with min_final_components=10 and not with 1
+    assert int(res.vp_train.kmask.sum()) < 10
+    if min_final_components == 1:
+        # no boost: the returned ELBO is the best iteration's stored one
+        assert res.elbo == res.stats.iterations[res.idx_best].elbo
+        import vbmc_tpu
+        jres = vbmc_tpu.vbmc(Target(TEMPERED_LNZ), x0=np.zeros(D),
+                             options=vbmc_tpu.VBMCOptions(
+                                 display="off", seed=1, max_fun_evals=30,
+                                 temperature=2, min_final_components=1),
+                             **BOX)
+        record_property("jax_package_elbo", float(jres.elbo))
+        assert np.isfinite(jres.elbo)
+    _gate(res, TEMPERED_LNZ)
 
 
 @pytest.mark.parametrize("dispatch", ["local", "subprocess"])

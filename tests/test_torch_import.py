@@ -46,6 +46,43 @@ def test_every_port_module_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+# The library names off the default path, each from the module that holds
+# it (`tests/test_torch_library_names.py` holds each against the reference).
+LIBRARY_NAMES = {
+    "vbmc_tpu_torch.gp": [
+        "GPConfig", "GP", "HypPrior", "gram_matrix", "build_posterior",
+        "neg_log_marginal_likelihood", "hyperprior_logpdf", "gp_predict",
+        "gp_predict_full", "train_gp", "TrainOptions",
+        "fix_center_from_data"],
+    "vbmc_tpu_torch.gp.core": ["Posterior", "solve_K", "predict_one",
+                               "gram_matrix"],
+    "vbmc_tpu_torch.gp.kernels": ["kernel_diag"],
+    "vbmc_tpu_torch.gp.outwarp": ["OUTWARP_NONE", "OUTWARP_NEGPOW",
+                                  "OUTWARP_NEGPOWC1", "OUTWARP_NEGSCALEDPOW"],
+    "vbmc_tpu_torch.elbo": ["theta_size", "entropy_upper_bound"],
+    "vbmc_tpu_torch.transforms": ["pdf_correction"],
+    "vbmc_tpu_torch.active_is": ["build_is_state"],
+    "vbmc_tpu_torch.samplers.slice": ["slice_sample_chain",
+                                      "slice_sample_ensemble"],
+    "vbmc_tpu_torch.vpoptim": ["vp_sample_theta"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(LIBRARY_NAMES))
+def test_library_names_import_without_jax(module):
+    """Each name from its module, in a fresh interpreter that then holds
+    no jax and nothing of `vbmc_tpu`."""
+    code = (f"from {module} import {', '.join(LIBRARY_NAMES[module])}\n"
+            "import sys\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', "
+            "'vbmc_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_no_port_source_imports_the_jax_package():
     bad = []
     for path in sorted((ROOT / "vbmc_tpu_torch").rglob("*.py")):

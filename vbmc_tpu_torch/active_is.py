@@ -91,6 +91,20 @@ def _mixture_draw(gen: torch.Generator, vp: VariationalPosterior, lo, hi,
     return Xa, _mixture_log_prop(vp, Xa, lo, hi, n_each, n_box)
 
 
+def build_is_state(gen: torch.Generator, cfg: GPConfig, acq_name: str,
+                   vp: VariationalPosterior, gp: GP, options) -> ISState:
+    """The importance-sampling set at the sizes and refresh settings of
+    ``options`` (`activeimportancesampling_vbmc.m`): `build_is_state_core`
+    with the option values."""
+    return build_is_state_core(
+        gen, cfg, acq_name, vp, gp,
+        int(options.active_importance_sampling_vp_samples),
+        int(options.active_importance_sampling_box_samples),
+        int(options.active_importance_sampling_mcmc_samples),
+        mh_steps=int(options.active_importance_sampling_mh_steps),
+        fess_thresh=float(options.active_importance_sampling_fess_thresh))
+
+
 def build_is_state_core(gen: torch.Generator, cfg: GPConfig, acq_name: str,
                         vp: VariationalPosterior, gp: GP, n_vp: int,
                         n_box: int, n_mcmc: int, mh_steps: int = 0,

@@ -41,6 +41,12 @@ class VPFlags(NamedTuple):
     opt_weights: bool = False
 
 
+def theta_size(flags: VPFlags, K: int, D: int) -> int:
+    """Length P of the packed parameter vector theta."""
+    return (K * D * flags.opt_mu + K * flags.opt_sigma + D * flags.opt_lambda
+            + K * flags.opt_weights)
+
+
 def pack_theta(flags: VPFlags, mu, sigma, lam, eta):
     """theta (B, P) from mu (B, K, D), sigma (B, K), lam (B, D), eta (B, K)."""
     parts = []
@@ -359,6 +365,20 @@ def entropy_lower_bound(mu, sigma, lam, w, kmask):
         + gamma_max[..., 0]
     H = -torch.where(kmask, w * log_gsum, 0.0).sum(-1)
     return H + torch.where(m.sum() == 1, 0.5 * D * (1.0 - math.log(2.0)), 0.0)
+
+
+def entropy_upper_bound(mu, sigma, lam, w, kmask):
+    """Gaussian moment-matching upper bound on the mixture entropy
+    (`ent/entub_vbmc.m`): the entropy of the Gaussian with the mixture's
+    covariance. (B,)"""
+    D = mu.shape[-1]
+    wk = w * kmask.to(w.dtype)
+    mean = (wk[..., None] * mu).sum(-2, keepdim=True)            # (B, 1, D)
+    dmu = mu - mean
+    cov = (dmu * wk[..., None]).transpose(-1, -2) @ dmu          # (B, D, D)
+    cov = cov + torch.diag_embed((wk * sigma ** 2).sum(-1, keepdim=True)
+                                 * lam ** 2)
+    return 0.5 * D * (1.0 + _LOG2PI) + 0.5 * torch.linalg.slogdet(cov)[1]
 
 
 def entropy_mc(mu, sigma, lam, w, kmask, eps_half):

@@ -10,6 +10,7 @@ reference's `vmap`). Gradients come from autograd through the Cholesky.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -17,9 +18,29 @@ from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.kernels import kernel_cross
 from vbmc_tpu_torch.gp.means import mean_function, int_mean_basis
 from vbmc_tpu_torch.gp.noise import noise_variance
-from vbmc_tpu_torch.gp.outwarp import outwarp_direct, outwarp_deriv
+from vbmc_tpu_torch.gp.outwarp import (outwarp_direct, outwarp_deriv,
+                                       outwarp_inverse)
 
 _LOG2PI = 1.8378770664093453
+
+
+class Posterior(NamedTuple):
+    """The factorisation `build_posterior` returns, by name, batched over
+    the S hyperparameter samples (`Posterior.of` takes that tuple)."""
+    alpha: torch.Tensor      # (S, N) B^-1 (y - m), zero on padded rows
+    L: torch.Tensor          # (S, N, N) lower Cholesky factor of B
+    Binv: torch.Tensor       # (S, N, N) B^-1
+    sn2: torch.Tensor        # (S, N) noise variance per point
+    chol_ok: Optional[torch.Tensor] = None   # (S,) first try succeeded
+    # the integrated mean's extras (None unless cfg.intmean > 0)
+    betabar: Optional[torch.Tensor] = None   # (S, Nb)
+    HBinv: Optional[torch.Tensor] = None     # (S, Nb, N)
+    Ainv: Optional[torch.Tensor] = None      # (S, Nb, Nb)
+
+    @classmethod
+    def of(cls, built) -> "Posterior":
+        alpha, L, Binv, sn2, ok, extras = built
+        return cls(alpha, L, Binv, sn2, ok, **extras)
 
 
 def warped_observations(cfg: GPConfig, hyp: torch.Tensor, y, s2, mask):
@@ -38,6 +59,14 @@ def warped_observations(cfg: GPConfig, hyp: torch.Tensor, y, s2, mask):
     return t * m, s2w, log_jac
 
 
+def gram_matrix(cfg: GPConfig, hyp: torch.Tensor, X: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Masked Gram matrix (Bt, N, N) for hyp (Bt, nhyp): zero rows and
+    columns at padded entries."""
+    m = mask.to(X.dtype)
+    return kernel_cross(cfg, hyp, X, X) * (m[:, None] * m[None, :])
+
+
 def _system_matrix(cfg: GPConfig, hyp: torch.Tensor, X, y, s2, mask):
     """B = K + diag(sn2) with identity rows/cols on padded entries:
     ((Bt, N, N), sn2 (Bt, N)). ``y`` (N,) is the observation vector before
@@ -45,7 +74,7 @@ def _system_matrix(cfg: GPConfig, hyp: torch.Tensor, X, y, s2, mask):
     warp (`gplite_core.m:35`). ``s2``, (N,) or (Bt, N), is the user noise
     variance, already scaled by the warp (None for noiseless targets)."""
     m = mask.to(X.dtype)
-    K = kernel_cross(cfg, hyp, X, X) * (m[:, None] * m[None, :])
+    K = gram_matrix(cfg, hyp, X, mask)
     sn2 = noise_variance(cfg, hyp[:, cfg.sl_noise], X.shape[0], s2, y)
     diag = sn2 * m + (1.0 - m)
     return K + torch.diag_embed(diag), sn2
@@ -182,3 +211,40 @@ def gp_log_posterior(cfg: GPConfig, prior, hyp, X, y, s2, mask):
     """Unnormalised log posterior of hyperparameters (B,)."""
     return (-neg_log_marginal_likelihood(cfg, hyp, X, y, s2, mask)
             + hyperprior_logpdf(prior, hyp))
+
+
+def solve_K(post: Posterior, v: torch.Tensor) -> torch.Tensor:
+    """B^-1 v per sample from the Cholesky factor: v (N,) gives (S, N);
+    v (N, k) or (S, N, k) gives (S, N, k)."""
+    if v.dim() == 1:
+        return torch.cholesky_solve(v[:, None].expand(
+            post.L.shape[0], -1, -1), post.L)[..., 0]
+    return torch.cholesky_solve(v.expand(post.L.shape[0], -1, -1), post.L)
+
+
+def predict_one(cfg: GPConfig, hyp: torch.Tensor, post: Posterior, X, y,
+                mask, Xstar):
+    """Latent mean and variance at Xstar (M, D) for each sample of hyp
+    (S, nhyp): (fmu (S, M), fs2 (S, M)), by products with the stored B^-1.
+    The integrated mean's correction follows `gplite_pred.m:89-94,110-118`;
+    under an output warp the mean is warped back and the variance follows
+    by the delta method (`gplite_pred.m:130-149`). ``y`` is unused, as in
+    the reference's signature."""
+    m = mask.to(X.dtype)
+    ks = kernel_cross(cfg, hyp, X, Xstar) * m[None, :, None]     # (S,N,M)
+    fmu = (mean_function(cfg, hyp[:, cfg.sl_mean], Xstar)
+           + (ks * post.alpha[:, :, None]).sum(1))
+    qf = (ks * (post.Binv @ ks)).sum(1)
+    kss = torch.exp(2.0 * hyp[:, cfg.idx_log_sf])[:, None]
+    fs2 = (kss - qf).clamp_min(0.0)
+    if cfg.nint > 0:
+        hs = int_mean_basis(cfg, Xstar)                       # (M, Nb)
+        R = hs[None] - (post.HBinv @ ks).transpose(-1, -2)    # (S, M, Nb)
+        fmu = fmu + (R @ post.betabar[..., None])[..., 0]
+        fs2 = fs2 + (R * (R @ post.Ainv)).sum(-1)
+    if cfg.outwarp != 0:
+        hyp_ow = hyp[:, cfg.sl_outwarp]
+        fmu = outwarp_inverse(cfg.outwarp, hyp_ow, fmu)
+        g = outwarp_deriv(cfg.outwarp, hyp_ow, fmu)
+        fs2 = fs2 / (g * g).clamp_min(torch.finfo(fs2.dtype).tiny)
+    return fmu, fs2

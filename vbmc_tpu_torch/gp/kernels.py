@@ -43,3 +43,11 @@ def kernel_cross(cfg: GPConfig, hyp: torch.Tensor, Xa: torch.Tensor,
             f = 1.0 + t * (1.0 + t / 3.0)
         return sf2 * f * torch.exp(-t)
     raise ValueError(f"unsupported covfun {cfg.covfun}")
+
+
+def kernel_diag(cfg: GPConfig, hyp: torch.Tensor, X: torch.Tensor
+                ) -> torch.Tensor:
+    """k(x, x) at each row of X for hyp (B, nhyp): (B, n), the constant
+    sf^2 of a stationary covariance."""
+    sf2 = torch.exp(2.0 * hyp[:, cfg.idx_log_sf])
+    return sf2[:, None].expand(-1, X.shape[0]).to(X.dtype)

@@ -8,7 +8,8 @@ PyTorch version:
 
 Each wrapper runs its plain version (`*_reference`) on a CPU tensor; on a
 CUDA tensor it launches the kernel or raises, with no fallback. Each launch
-adds one to the wrapper's ``launches``.
+adds one to the wrapper's ``launches``, and a float32 one also to its
+``launches_f32``.
 
 Both kernels share `csrc/gp_tile.cuh`: per block, the ks tile computed once
 in dynamic shared memory, the left operands (Binv, invKzk) streamed through
@@ -179,6 +180,7 @@ class _Kernel:
 
     def __init__(self):
         self.launches = 0
+        self.launches_f32 = 0
         self._lib = None
         self._profile = False
 
@@ -281,6 +283,7 @@ class _Kernel:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {err}")
         self.launches += 1
+        self.launches_f32 += Xs.dtype == torch.float32
 
 
 class ProspectiveAcq(_Kernel):

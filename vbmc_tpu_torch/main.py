@@ -819,10 +819,18 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
             n_ent_fine=opt.evalopt("ns_ent_fine_boost", K_boost),
             n_ent_fast=opt.evalopt("ns_ent_fast_boost", K_boost),
             prune=False, host_seed=int(rng.integers(2 ** 31 - 1)))
-        vp = res_boost.vp
+        vp_fit = res_boost.vp
         elbo, elbo_sd = res_boost.elbo, res_boost.elbo_sd
     else:
-        vp = vp_best
+        vp_fit = vp_best
+    vp = vp_fit
+    if opt.temperature > 1:
+        # Into real space once: the boost's ELBO is the tempered
+        # posterior's, a stored one is the real posterior's already.
+        vp, elbo_real, sd_real = vp_train2real(vp_fit, opt.temperature,
+                                               elbo, elbo_sd)
+        if K_best < K_boost:
+            elbo, elbo_sd = elbo_real, sd_real
 
     stable = stats.iterations[idx_best].stable
     convergence = "probable" if stable else "no"
@@ -835,9 +843,12 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
               f"[{convergence} convergence, {logger.func_count} fcn evals]")
 
     # Automatic retry from the best posterior (`vbmc.m:968-1009`), on the
-    # same device and dtype. Unlike the reference (`vbmc_tpu/main.py:
-    # 908-917`) no `except` keeps the first result when the second run
-    # fails: a failure there raises (ROADMAP Queue 3 u).
+    # same device and dtype, warm-started from the training-space VP. Unlike
+    # the reference (`vbmc_tpu/main.py:908-917`) no `except` keeps the first
+    # result when the second run fails: a failure there raises (ROADMAP
+    # Queue 3 u). Both ELBOs it compares are the real posterior's; the
+    # reference converts a tempered run's ELBO after the retry, and twice
+    # when no boost ran (ROADMAP Queue 3 aa).
     if exitflag < 1 and opt.retry_max_fun_evals > 0:
         if display:
             print("Attempting a second inference run from the current "
@@ -845,16 +856,13 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         retry_user = dataclasses.replace(
             options, max_fun_evals=opt.retry_max_fun_evals,
             retry_max_fun_evals=0, seed=opt.seed + 1)
-        res2 = vbmc(fun, vp, lb, ub, None, None, options=retry_user,
+        res2 = vbmc(fun, vp_fit, lb, ub, None, None, options=retry_user,
                     device=device, dtype=dtype)
         if res2.exitflag >= 1 or (res2.elbo - opt.best_safe_sd
                                   * res2.elbo_sd) > (elbo - opt.best_safe_sd
                                                      * elbo_sd):
             res2.timers["first_run"] = time.monotonic() - t0
             return res2
-
-    if opt.temperature > 1:
-        vp, elbo, elbo_sd = vp_train2real(vp, opt.temperature, elbo, elbo_sd)
 
     timers["final_boost"] = time.monotonic() - t_final
     timers["total"] = time.monotonic() - t0

@@ -95,8 +95,32 @@ def slice_sample_chains(gen: torch.Generator, logpdf, x0s: torch.Tensor,
             x, logp_x = _slice_coord(gen, logpdf, x, d, logp_x, widths[d],
                                      lb, ub)
         if i >= burn and (i - burn + 1) % thin == 0:
-            idx = (i - burn + 1) // thin - 1
-            if idx < n_keep_max:
-                buf[:, idx] = x
-                logbuf[:, idx] = logp_x
+            # past n_keep_max kept states the last slot takes each new one
+            idx = min((i - burn + 1) // thin - 1, n_keep_max - 1)
+            buf[:, idx] = x
+            logbuf[:, idx] = logp_x
     return buf, logbuf
+
+
+def slice_sample_chain(gen: torch.Generator, logpdf, x0: torch.Tensor,
+                       widths, lb, ub, n_keep, burn, thin, n_keep_max: int):
+    """One chain from x0 (D,) for a log density of one point ``logpdf``
+    (D,) -> (), written in torch operations and applied to the batch's
+    rows by `torch.func.vmap` (the reference's `vmap`). Returns (samples
+    (n_keep_max, D), logps (n_keep_max,)); slots from n_keep on hold zeros
+    and -inf."""
+    buf, logbuf = slice_sample_chains(gen, torch.func.vmap(logpdf),
+                                      x0[None], widths, lb, ub, int(n_keep),
+                                      int(burn), int(thin), n_keep_max)
+    return buf[0], logbuf[0]
+
+
+def slice_sample_ensemble(gen: torch.Generator, logpdf, x0s: torch.Tensor,
+                          widths, lb, ub, n_keep_per_chain, burn, thin,
+                          n_keep_max_per_chain: int):
+    """C chains from the rows of x0s (C, D), advanced together, for a log
+    density of one point as in `slice_sample_chain`. Returns (samples
+    (C, n_keep_max_per_chain, D), logps (C, n_keep_max_per_chain))."""
+    return slice_sample_chains(gen, torch.func.vmap(logpdf), x0s, widths,
+                               lb, ub, int(n_keep_per_chain), int(burn),
+                               int(thin), n_keep_max_per_chain)

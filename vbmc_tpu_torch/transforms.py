@@ -184,6 +184,11 @@ def log_abs_det_jacobian(trinfo: Trinfo, y: torch.Tensor) -> torch.Tensor:
     return (p + torch.log(trinfo.scale)).sum(-1)
 
 
+def pdf_correction(trinfo: Trinfo, y: torch.Tensor) -> torch.Tensor:
+    """|dx/dy| at unconstrained y (the reference 'prob' action)."""
+    return torch.exp(log_abs_det_jacobian(trinfo, y))
+
+
 # ----------------------------------------------------------------------
 # Host (NumPy) twins.
 # ----------------------------------------------------------------------

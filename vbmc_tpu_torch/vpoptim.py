@@ -428,6 +428,59 @@ def vpoptimize(gen: torch.Generator, cfg: GPConfig, vp: VariationalPosterior,
         pruned=pruned, I_sk=st_cur["I_sk"], J_sjk=st_cur["J_sjk"])
 
 
+def vp_sample_theta(gen: torch.Generator, cfg: GPConfig,
+                    vp: VariationalPosterior, gp: GP, n_samples: int, options,
+                    *, sampler: Optional[str] = None,
+                    scale_lower_bound: bool = True) -> VariationalPosterior:
+    """MCMC over the variational parameters (mu, log sigma, log lambda) with
+    the negative ELBO (entropy lower bound, soft bounds of ``options``) as
+    minus the log density (`misc/vpsample_vbmc.m`; the off-default
+    `active_variational_samples` path). Returns the VP at the chain's last
+    state. ``sampler``, "mala" or "slice", defaults to
+    ``options.variational_sampler``. ``scale_lower_bound`` is unused, as in
+    the reference."""
+    from vbmc_tpu_torch.samplers.mala import mala_sample
+    from vbmc_tpu_torch.samplers.slice import slice_sample_chains
+
+    if sampler is None:
+        sampler = {"malasample": "mala", "mala": "mala",
+                   "slicesample": "slice", "slice": "slice"}.get(
+            getattr(options, "variational_sampler", "malasample"), "mala")
+    flags = eb.VPFlags(opt_mu=True, opt_sigma=True, opt_lambda=True,
+                       opt_weights=False)
+    theta0 = eb.pack_theta(flags, vp.mu[None], vp.sigma[None], vp.lam[None],
+                           vp.eta[None])                            # (1, P)
+    bnd = eb.compute_vp_bounds(gp, options, int(to_np(vp.kmask).sum()))
+
+    def logp(th):                                         # (B, P) -> (B,)
+        F, _ = eb.negelcbo(cfg, th, gp, vp.mu, vp.sigma, vp.lam, vp.w,
+                           vp.kmask, flags, 0.0, 0, 0, bnd=bnd,
+                           use_bounds=True)
+        return -F
+
+    if sampler == "mala":
+        def lp_grad(th):
+            v, g = value_and_grad(logp, th[None])
+            return v[0], g[0]
+        samples, _, _ = mala_sample(gen, lp_grad, theta0[0], n_samples,
+                                    step0=0.01)
+        theta_new = samples[-1]
+    else:
+        P = theta0.shape[1]
+        inf = torch.full((P,), math.inf, dtype=theta0.dtype,
+                         device=theta0.device)
+        with torch.no_grad():
+            buf, _ = slice_sample_chains(gen, logp, theta0,
+                                         torch.full_like(inf, 0.1), -inf, inf,
+                                         n_samples, 0, 1, max(n_samples, 1))
+        theta_new = buf[0, n_samples - 1]
+    mu, sigma, lam, _ = eb.unpack_theta(flags, theta_new[None], vp.k_max,
+                                        vp.D, vp.mu, vp.sigma, vp.lam, vp.w,
+                                        vp.kmask)
+    return vp.replace(mu=mu[0].detach(), sigma=sigma[0].detach(),
+                      lam=lam[0].detach())
+
+
 def fractional_ess(gen: torch.Generator, cfg: GPConfig,
                    vp: VariationalPosterior, gp: GP,
                    n_samples: int = 100) -> float:
