@@ -60,7 +60,7 @@ def test_real_to_int_equals_reference(bounds, mask):
     y = np.random.default_rng(0).uniform(-2, 2, (50, 3))
     ref = np.asarray(j_real_to_int(j_create_trinfo(lb, ub, plb, pub),
                                    jnp.asarray(y), np.array(mask)))
-    ti = create_trinfo(lb, ub, plb, pub)
+    ti = create_trinfo(lb, ub, plb, pub, device="cpu")
     got = real_to_int(ti, torch.as_tensor(y), np.array(mask))
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
     x = inverse(ti, got).numpy()[:, np.array(mask)]
@@ -68,7 +68,8 @@ def test_real_to_int_equals_reference(bounds, mask):
 
 
 def _logger(D=2, n=6, lb=-10.0):
-    ti = create_trinfo([lb] * D, [10.0] * D, [-3.0] * D, [3.0] * D)
+    ti = create_trinfo([lb] * D, [10.0] * D, [-3.0] * D, [3.0] * D,
+                       device="cpu")
     logger = FunctionLogger(lambda x: float(-np.sum(x ** 2)), D, ti)
     for i in range(n):
         logger.evaluate(np.array([0.1 * i, -0.1 * i] + [0.0] * (D - 2)))
@@ -93,7 +94,7 @@ def test_initial_design_thinning_equals_reference(n_cache, n_evals):
     left_ref, left_y_ref = j_initial_design(jax.random.PRNGKey(0), jl,
                                             n_evals, plb, pub, x0_cache=cache)
     tl = FunctionLogger(fun, D, create_trinfo([-10.0] * D, [10.0] * D, plb,
-                                              pub))
+                                              pub, device="cpu"))
     left, left_y = tas.initial_design(torch.Generator().manual_seed(0), tl,
                                       n_evals, plb, pub, x0_cache=cache)
     assert tl.Xn == n_evals
@@ -143,7 +144,8 @@ def test_get_search_points_parts():
     SDs to 10%)."""
     D = 2
     n = 16384
-    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D)
+    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D,
+                       device="cpu")
     logger = FunctionLogger(lambda x: float(-0.5 * np.sum(x ** 2)), D, ti)
     rng = np.random.default_rng(0)
     for x in rng.uniform(-1, 1, (30, D)):
@@ -196,7 +198,8 @@ def _fixed_problem(noisy, D=2, seed=5):
     cfg, X, y, s2, hyps = gp_problem(seed, D=D, n=20, S=4, noisy=noisy,
                                      user_noise=1 if noisy else 0)
     tcfg = tcfg_of(cfg)
-    ti = create_trinfo([-10.0] * D, [10.0] * D, [-3.0] * D, [3.0] * D)
+    ti = create_trinfo([-10.0] * D, [10.0] * D, [-3.0] * D, [3.0] * D,
+                       device="cpu")
     noise = np.random.default_rng(seed)
 
     def fun(x):

@@ -128,7 +128,8 @@ def test_train_gp_runs_with_iso_and_matern(covfun, nu):
     gp, info = train_gp(gen, cfg, X, y, None, np.full(2, -2.0),
                         np.full(2, 2.0),
                         TrainOptions(ns_samples=0, ninit=256, nopts=1,
-                                     lbfgs_iters=30), host_seed=1)
+                                     lbfgs_iters=30), host_seed=1,
+                        device="cpu")
     assert np.isfinite(info["hyp_map"]).all()
     Xs = rng.uniform(-1.5, 1.5, (20, 2))
     fbar, vtot, _, _ = gp_predict(cfg, gp, torch.tensor(Xs))

@@ -189,7 +189,8 @@ def test_warm_start_from_a_vp_raises():
     the next ones at the following draws."""
     from vbmc_tpu_torch.transforms import create_trinfo
     from vbmc_tpu_torch.vp import make_vp, vp_rnd
-    ti = create_trinfo([-np.inf] * 2, [np.inf] * 2, [-1.0] * 2, [1.0] * 2)
+    ti = create_trinfo([-np.inf] * 2, [np.inf] * 2, [-1.0] * 2, [1.0] * 2,
+                       device="cpu")
     vp0 = make_vp(ti, np.zeros((2, 2)), 0.5, np.ones(2))
     draws = vp_rnd(vp0, torch.Generator().manual_seed(1 + 77), 100).numpy()
     calls = []

@@ -59,7 +59,8 @@ def test_warm_start_from_a_vp():
     77) give the first starting point, the plausible box (their 5% and 95%
     quantiles, as none is given) and the rest of the initial design."""
     from vbmc_tpu_torch.transforms import create_trinfo
-    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D)
+    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D,
+                       device="cpu")
     u = (MU - 0.0) / 6.0        # the transform's affine map: centre 0, scale 6
     vp0 = make_vp(ti, u[None, :] + 0.02 * np.array([[1, 0], [0, 1], [-1, -1]]),
                   SD.mean() / 6.0, SD / SD.mean())

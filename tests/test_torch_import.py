@@ -122,6 +122,36 @@ def test_vbmc_defaults_to_the_card_and_raises_without_one():
     assert not calls   # the target was never evaluated on the CPU instead
 
 
+@pytest.mark.parametrize("name", ["create_trinfo", "train_gp"])
+def test_exported_builders_default_to_the_card_and_raise_without_one(name):
+    """`create_trinfo` and `gp.train_gp` build on the card unless told
+    otherwise, as `vbmc` does: without a card the default raises instead of
+    building CPU tensors."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import vbmc_tpu_torch.gp as tgp
+
+    fn = {"create_trinfo": vbmc_tpu_torch.create_trinfo,
+          "train_gp": tgp.train_gp}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    D = 2
+    if name == "create_trinfo":
+        args = ([-np.inf] * D, [np.inf] * D, [-2.0] * D, [2.0] * D)
+    else:
+        rng = np.random.default_rng(0)
+        X = rng.uniform(-2, 2, (12, D))
+        args = (torch.Generator().manual_seed(0),
+                tcfg.GPConfig(D=D), X, -0.5 * np.sum(X ** 2, 1), None,
+                np.full(D, -2.0), np.full(D, 2.0), tgp.TrainOptions())
+    with pytest.raises((RuntimeError, AssertionError)):
+        fn(*args)
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
 def test_card_scripts_import_only_the_port(script):
     tree = ast.parse((ROOT / script).read_text())

@@ -27,7 +27,8 @@ D = 2
 def _setup(seed=42, n0=20, ns=4, **cfg_kw):
     rng = np.random.default_rng(seed)
     sd = np.array([1.0, 0.7])
-    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D)
+    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-3.0] * D, [3.0] * D,
+                       device="cpu")
 
     def noisy(x):
         y = float(-0.5 * np.sum((np.asarray(x) / sd) ** 2))
@@ -47,7 +48,7 @@ def _setup(seed=42, n0=20, ns=4, **cfg_kw):
     X, y, s2 = logger.training_data()
     gen = torch.Generator().manual_seed(0)
     gp, _ = train_gp(gen, cfg, X, y, s2, np.full(D, -3.0), np.full(D, 3.0),
-                     topts, host_seed=1)
+                     topts, host_seed=1, device="cpu")
     vp = make_vp(ti, rng.uniform(-1, 1, (3, D)), 0.5, np.ones(D), k_max=4)
     return cfg, opts, topts, logger, gp, vp
 

@@ -172,7 +172,7 @@ def test_train_gp_picks_the_reference_sampler(D):
                         lbfgs_iters=30, n_chains=4)
     gen = torch.Generator().manual_seed(0)
     gp, info = train_gp(gen, cfg, X, y, None, np.full(D, -2.0),
-                        np.full(D, 2.0), opts, host_seed=1)
+                        np.full(D, 2.0), opts, host_seed=1, device="cpu")
     assert hyp_sampler_for(cfg, 8) == ("ensemble" if D == 6 else "slice")
     hyp = gp.hyp[gp.hyp_mask].numpy()
     assert np.all(np.isfinite(hyp)) and hyp.shape[0] == 8

@@ -459,7 +459,8 @@ def test_initial_design_with_fvals_equals_reference(n_cache):
                               x0_cache=cache, fvals_cache=fvals)
     n_jax_calls = len(calls)
     calls.clear()
-    tl = TL(fun, D, create_trinfo([-10.0] * D, [10.0] * D, plb, pub))
+    tl = TL(fun, D, create_trinfo([-10.0] * D, [10.0] * D, plb, pub,
+                                  device="cpu"))
     left, left_y = t_init(torch.Generator().manual_seed(0), tl, n_evals, plb,
                           pub, x0_cache=cache, fvals_cache=fvals)
     np.testing.assert_array_equal(left, left_r)

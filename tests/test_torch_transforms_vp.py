@@ -68,7 +68,7 @@ def test_transforms_match_jax(bounded_type, rotate):
 
 def test_create_trinfo_matches_jax():
     jt = jtr.create_trinfo(LB, UB, PLB, PUB)
-    tt = ttr.create_trinfo(LB, UB, PLB, PUB)
+    tt = ttr.create_trinfo(LB, UB, PLB, PUB, device="cpu")
     for name in ("type", "lb_orig", "ub_orig", "mu", "delta", "R_mat",
                  "scale"):
         np.testing.assert_allclose(tt.host()[name],

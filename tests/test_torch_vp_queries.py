@@ -170,7 +170,8 @@ def test_vp_rnd_student_t_any_df_by_moments(df):
     from scipy import stats
     from vbmc_tpu_torch.transforms import create_trinfo
     D, N = 2, 200_000
-    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-1.0] * D, [1.0] * D)
+    ti = create_trinfo([-np.inf] * D, [np.inf] * D, [-1.0] * D, [1.0] * D,
+                       device="cpu")
     vp = tvp.make_vp(ti, np.zeros((1, D)), 1.0, np.ones(D))
     X = tvp.vp_rnd(vp, torch.Generator().manual_seed(0), N, orig_flag=False,
                    df=df).numpy()

@@ -307,11 +307,13 @@ def map_sample_assemble_core(cfg: GPConfig, gen: torch.Generator, x0s_map,
 def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
              y: np.ndarray, s2: Optional[np.ndarray], plb_tr, pub_tr,
              opts: TrainOptions, hyp0: Optional[np.ndarray] = None,
-             host_seed: Optional[int] = None, *, device="cpu",
+             host_seed: Optional[int] = None, *, device="cuda",
              dtype=torch.float64):
     """Fit the GP surrogate on host training data (unpadded; ``s2`` the
     user noise variance or None); returns (GP, info dict). ``host_seed``
-    seeds the host draws (design points, chain-start jitter)."""
+    seeds the host draws (design points, chain-start jitter). The GP
+    lives on the card unless the caller names another ``device``, as in
+    `vbmc`; without a card the default raises."""
     def t(v):
         return torch.as_tensor(np.asarray(v, np.float64), device=device,
                                dtype=dtype)

@@ -5,7 +5,8 @@ RMSE < 0.5 with a non-negative exit flag.
 
 The port's own copy of the blocks of `bench.py` (`_blocks`, `run_block`),
 free of jax; `python -m vbmc_tpu_torch test` runs them, on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given, and `python -m vbmc_tpu_torch.bench` (the twin
+of `bench.py`) times them.
 """
 
 from __future__ import annotations
@@ -108,38 +109,78 @@ def _blocks():
     return blocks
 
 
-def run_block(blk, seed, max_fun_evals=100, device="cuda"):
+def run_block(blk, seed, max_fun_evals=100, device="cuda", deadline=None):
     """One full VBMC run of a block on ``device``, its progress on stderr
-    (``VBMC_BENCH_PROGRESS=0`` silences it). Unlike `bench.run_block`, a
-    failure in the run raises instead of being reported as a failed
-    block."""
+    (``VBMC_BENCH_PROGRESS=0`` silences it). ``deadline`` (an absolute
+    `time.monotonic()`) stops the run after the iteration in which it
+    passes, through the ``output_fcn`` stop protocol, as in
+    `bench.run_block` (``cut`` then says so). A block may carry
+    ``options``, VBMCOptions fields that replace the suite's own
+    (``min_final_components=20``).
+
+    Returns the reference's gate (|ELBO - lnZ| < 0.5, posterior-mean RMSE
+    < 0.5, exit flag >= 0) with its values, the final VP's components
+    ``K`` (``K_train`` before the final boost, `bench.py`'s K), and what
+    each layer of the run cost: ``timers`` (`VBMCResult.timers`), the
+    seconds of each iteration (``s_per_iter``, ``s_per_iter_median``), the
+    sweep kernels' launches during the run (``launches``, the difference of
+    the wrappers' counters: 0 on the CPU, where the wrappers run their
+    plain versions), the acquired points and, on the card, the peak device
+    memory in MiB (after `torch.cuda.reset_peak_memory_stats`). Unlike
+    `bench.run_block`, a failure in the run raises instead of being
+    reported as a failed block."""
     import torch
 
-    from vbmc_tpu_torch import vbmc, VBMCOptions, vp_moments
+    from vbmc_tpu_torch import kernels, vbmc, VBMCOptions, vp_moments
     t_blk = time.monotonic()
     print(f"# >> block {blk['name']} start", file=sys.stderr, flush=True)
     progress = os.environ.get("VBMC_BENCH_PROGRESS", "1") == "1"
+    iter_ends = [t_blk]
+    cut = False
 
     def _hook(info):
+        nonlocal cut
+        iter_ends.append(time.monotonic())
         if progress:
             print(f"#    {blk['name']} iter {info['iteration']:3d} "
                   f"fc={info['func_count']:3d} elbo={info['elbo']:8.3f} "
                   f"K={info['K']:3d} t={time.monotonic() - t_blk:7.1f}s "
                   f"timer={info.get('timer')}", file=sys.stderr, flush=True)
-        return False
+        cut = deadline is not None and time.monotonic() > deadline
+        return cut
 
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    sweeps = (kernels.prospective_acq, kernels.viqr_acq)
+    launches0 = [k.launches for k in sweeps]
+    fields = {"min_final_components": 20, **blk.get("options", {})}
     opts = VBMCOptions(display="off", max_fun_evals=max_fun_evals,
-                       seed=seed, min_final_components=20,
-                       specify_target_noise=blk["noisy"], output_fcn=_hook)
+                       seed=seed, specify_target_noise=blk["noisy"],
+                       output_fcn=_hook, **fields)
     fun = blk["make_fun"](seed) if "make_fun" in blk else blk["fun"]
     res = vbmc(fun, x0=blk["x0"], lb=blk["lb"], ub=blk["ub"],
                plb=blk["plb"], pub=blk["pub"], options=opts, device=device)
+    elapsed = time.monotonic() - t_blk
+    launches = {k.name: k.launches - n0 for k, n0 in zip(sweeps, launches0)}
+    peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                if on_card else None)
     gen = torch.Generator(device=res.vp.mu.device).manual_seed(0)
     mean, _ = vp_moments(res.vp, orig_flag=True, n_samples=10 ** 5, gen=gen)
     err_elbo = abs(res.elbo - blk["lnz"])
     rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - blk["mean"]) ** 2)))
     ok = (res.exitflag >= 0) and err_elbo < 0.5 and rmse < 0.5
-    return dict(name=blk["name"], ok=bool(ok), elbo_err=float(err_elbo),
-                rmse=rmse, func_count=res.func_count,
+    iter_s = np.diff(iter_ends)
+    start = opts.resolve(blk["D"]).fun_eval_start
+    return dict(name=blk["name"], seed=seed, ok=bool(ok), cut=cut,
+                elbo=float(res.elbo), elbo_err=float(err_elbo), rmse=rmse,
+                exitflag=int(res.exitflag), func_count=res.func_count,
                 iters=res.iterations,
-                elapsed_s=round(time.monotonic() - t_blk, 1))
+                acquired=res.func_count - start,
+                K=int(res.vp.kmask.sum()),
+                K_train=int(res.vp_train.kmask.sum()), launches=launches,
+                timers=dict(res.timers), peak_device_mib=peak_mib,
+                s_per_iter=elapsed / max(res.iterations, 1),
+                s_per_iter_median=(float(np.median(iter_s)) if iter_s.size
+                                   else None),
+                elapsed_s=elapsed)

@@ -84,9 +84,11 @@ def _t4_icdf(p):
 
 
 def create_trinfo(lb, ub, plb=None, pub=None, bounded_type: int = LOGIT, *,
-                  device="cpu", dtype=torch.float64) -> Trinfo:
+                  device="cuda", dtype=torch.float64) -> Trinfo:
     """Build a Trinfo from bounds (cf. `warpvars_vbmc.m:856-920`): types from
-    bound finiteness, affine recentring from the transformed plausible box."""
+    bound finiteness, affine recentring from the transformed plausible box.
+    Its tensors live on the card unless the caller names another
+    ``device``, as in `vbmc`; without a card the default raises."""
     lb = np.asarray(lb, dtype=np.float64).ravel()
     ub = np.asarray(ub, dtype=np.float64).ravel()
     D = lb.shape[0]

@@ -113,11 +113,11 @@ def vp_log_pdf_trans(vp: VariationalPosterior, X: torch.Tensor,
 
 def _chi2(gen: torch.Generator, df: float, shape, like: torch.Tensor):
     """Chi-square draws from ``gen`` for any df > 0: a sum of df squared
-    normals where df is an integer, else twice a Gamma(df / 2) draw (the
-    reference draws the gamma for every df, `vbmc_tpu/vp.py:153-156`; the
-    sums keep the stream of the integer df the search sets use, until the
-    card-against-CPU rule that the new stream trips is set from readings:
-    ROADMAP Queue 3 z)."""
+    normals where df is an integer, else twice a Gamma(df / 2) draw. The
+    reference draws the gamma for every df (`vbmc_tpu/vp.py:153-156`);
+    both paths have the same law, which is all a run can show, since the
+    two packages' random streams never match (ROADMAP decision z,
+    `tests/test_torch_bench.py`)."""
     k = int(df)
     if k == df and k >= 1:
         z = torch.randn((k,) + tuple(shape), generator=gen,
