@@ -26,7 +26,11 @@ Phases, each printing what it found; any failure exits non-zero:
      above take the two 64-candidate plans and the 16-candidate one);
    - `viqr_acq` on a GP with an output scale of 3e4, float64 and float32:
      predictive SDs at the integration points above 1100, where 2 sinh of
-     u SD overflows either type and only a log-domain fold holds.
+     u SD overflows either type and only a log-domain fold holds;
+   - both kernels at the N=640 and N=768 rungs of `utils.math.N_BUCKETS`
+     (S=16 K=16 M=8192 D=6, float64): the 16-candidate plan below its top
+     rung, where the reference's default D=10 budget of 600 evaluations
+     goes.
    Beside each float64 time stand the bound (the product flops of the valid
    samples and training points over 67 TFLOP/s, the H100's FP64 tensor-core
    peak, or every input and output byte once over 3.35 TB/s if that is
@@ -114,7 +118,15 @@ Phases, each printing what it found; any failure exits non-zero:
    plus 1e-6 of the largest value where the GP's variance cancels, same
    argmin), with the CUDA-event time of each. Last, `prospective_acq` at
    the shapes of the stress run's last GP and VP.
-9. A JSON line with every kernel's numbers (the headline ones at the
+9. The microbenchmark `python -m vbmc_tpu_torch.bench_kernels` (the twin
+   of `bench_kernels.py`), in this process at its default shape (N=256
+   S=16 K=16 M=8192 D=6) with a 50 ms pipelined window, its rows logged
+   as `[bench_kernels]` lines: the probe's DGEMM must be at most 1.05x the
+   card's documented FP64 peak, every row's numbers finite, and each
+   `_cuda` row must have moved its kernel's launch counter (those
+   launches are not the main path's and are not counted in the line
+   below).
+10. A JSON line with every kernel's numbers (the headline ones at the
    stress run's last GP for `prospective_acq` and at the noisy run's for
    `viqr_acq`; launches summed over every run of this process and of the
    two child processes; the sweep's workers are not counted), then the
@@ -456,6 +468,9 @@ MID = dict(N=512, S=16, K=16, M=8192, D=6)
 # 2 sinh(u SD) overflows float64 (float32 from an SD of 131).
 WIDE = dict(N=128, S=8, K=8, M=8192, D=6, log_sf=float(np.log(3e4)))
 WIDE_MIN_SD = 1100.0
+# The rungs below the top that the shapes above skip: the 16-candidate plan
+# at N=640 and 768.
+RUNGS = tuple(dict(N=N, S=16, K=16, M=8192, D=6) for N in (640, 768))
 
 
 def phase_kernels(torch, kernels):
@@ -520,6 +535,9 @@ def phase_kernels(torch, kernels):
     prospective("mid ", MID, float32=False)
     viqr("mid ", MID, float32=False)
     viqr("wide ", WIDE, float32=True, min_sd=WIDE_MIN_SD)
+    for case in RUNGS:
+        prospective("rung ", case, float32=False)
+        viqr("rung ", case, float32=False)
     return out
 
 
@@ -1332,6 +1350,43 @@ MTV_SEEDS = 6
 QUERY_RTOL = 1e-10
 
 
+# The pipelined window of the microbenchmark's rows here (its command line
+# takes 200 ms).
+TWIN_WINDOW_S = 0.05
+TWIN_NUMBERS = ("ms_pipelined", "ms_single", "tflops", "mfu_f64roof")
+
+
+def phase_bench_kernels(torch):
+    """`vbmc_tpu_torch.bench_kernels` at its default shape: the probe and
+    every row, each row's numbers finite and each `_cuda` row with its
+    kernel launched. Returns the rows."""
+    from vbmc_tpu_torch import bench_kernels
+
+    rows = bench_kernels.run(
+        *bench_kernels.DEFAULTS, "cuda", window_s=TWIN_WINDOW_S,
+        emit=lambda r: log(f"[bench_kernels] {json.dumps(r)}"))
+    probe, timed = rows[0], rows[1:]
+    if not np.isfinite(probe["value"]) or probe["value"] <= 0:
+        raise AssertionError(f"bench_kernels: probe reads {probe['value']}")
+    if len(timed) != 8:
+        raise AssertionError(f"bench_kernels: {len(timed)} rows, not 8")
+    for r in timed:
+        bad = [k for k in TWIN_NUMBERS if not np.isfinite(r[k])]
+        bad += [k for k in ("launches", "device_ms", "mfu")
+                if r[k] is not None and not np.isfinite(r[k])]
+        if bad:
+            raise AssertionError(f"bench_kernels {r['metric']}: {bad} not "
+                                 f"finite")
+    by_metric = {r["metric"]: r for r in timed}
+    for row, name in (("acquisition_sweep_8k_cuda", "prospective_acq"),
+                      ("viqr_sweep_8k_cuda", "viqr_acq")):
+        if not by_metric[f"kernel_{row}_ms"]["sweep_launches"][name] > 0:
+            raise AssertionError(f"bench_kernels {row}: {name} was not "
+                                 f"launched")
+    log(f"[bench_kernels] {len(timed)} rows at N=256 S=16 K=16 M=8192: ok")
+    return rows
+
+
 def check_dmma(libs):
     """The float64 products of both libraries must have compiled to DMMA
     (FP64 tensor-core) opcodes: count them in the SASS."""
@@ -1420,6 +1475,7 @@ def main():
                                 STRESS_D)
     results["prospective_acq"].append(r6)
     main_path = {"prospective_acq": main_p, "viqr_acq": main_v}
+    phase_bench_kernels(torch)
 
     log(f"[env] nvidia-smi: {smi}")
     log(kernels_line(results, main_path, launches))

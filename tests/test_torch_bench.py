@@ -116,7 +116,27 @@ def test_run_block_takes_a_blocks_own_options():
     blk = dict(_blk("smoothbox1"), options=dict(min_final_components=5,
                                                 min_fun_evals=15))
     r = selftest.run_block(blk, seed=1, max_fun_evals=15, device="cpu")
-    assert r["func_count"] == 15 and r["K"] == 5 >= r["K_train"]
+    assert r["func_count"] == 15 and r["K_final"] == 5 >= r["K"]
+
+
+def test_k_is_the_best_iterations_vp_before_the_boost(monkeypatch):
+    """``K`` is `bench.py`'s quantity, the components of ``res.vp_train``;
+    ``K_final`` counts the final VP, which the boost raised."""
+    import vbmc_tpu_torch
+
+    results = []
+
+    def keep(*args, **kw):
+        results.append(run(*args, **kw))
+        return results[-1]
+
+    run = vbmc_tpu_torch.vbmc
+    monkeypatch.setattr(vbmc_tpu_torch, "vbmc", keep)
+    r = selftest.run_block(_blk("smoothbox1"), seed=1, max_fun_evals=15,
+                           device="cpu")
+    (res,) = results
+    assert r["K"] == int(res.vp_train.kmask.sum())
+    assert r["K_final"] == int(res.vp.kmask.sum()) == 20 > r["K"]
 
 
 def test_the_stress_block_runs_through_run_job():
@@ -124,7 +144,7 @@ def test_the_stress_block_runs_through_run_job():
                             max_fun_evals=tbench.STRESS_EVALS,
                             deadline=time.monotonic() - 1.0, device="cpu"))
     assert "error" not in r and r["cut"] and r["iters"] == 1
-    assert r["K"] == 50 and r["func_count"] == 20
+    assert r["K_final"] == 50 and r["func_count"] == 20
 
 
 def test_run_block_returns_timers_launches_and_the_gate():
@@ -137,7 +157,7 @@ def test_run_block_returns_timers_launches_and_the_gate():
     assert r["launches"] == {"prospective_acq": 0, "viqr_acq": 0}
     assert {"active_sampling", "gp_train", "variational_fit", "finalize",
             "warping", "total"} <= set(r["timers"])
-    assert r["peak_device_mib"] is None and r["K"] >= r["K_train"] >= 1
+    assert r["peak_device_mib"] is None and r["K_final"] >= r["K"] >= 1
     assert 0 < r["s_per_iter_median"] and 0 < r["s_per_iter"] <= r[
         "elapsed_s"]
     json.dumps(r)

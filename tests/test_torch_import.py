@@ -152,7 +152,12 @@ def test_exported_builders_default_to_the_card_and_raise_without_one(name):
         fn(*args)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+# The scripts that run on the card: at the root, and as a module of the port.
+CARD_SCRIPTS = ["chip_smoke.py", "chip_profile.py",
+                "vbmc_tpu_torch/bench_kernels.py"]
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
 def test_card_scripts_import_only_the_port(script):
     tree = ast.parse((ROOT / script).read_text())
     names = set()
@@ -168,12 +173,18 @@ def test_card_scripts_import_only_the_port(script):
 
 
 @pytest.mark.parametrize("alone", [False, True])
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
 def test_card_scripts_fail_without_a_gpu(script, alone, tmp_path):
+    name = Path(script).name
     if alone:
-        shutil.copy(ROOT / script, tmp_path / script)
+        shutil.copy(ROOT / script, tmp_path / name)
+        cmd = [sys.executable, name]
+    elif "/" in script:
+        cmd = [sys.executable, "-m", script[:-3].replace("/", ".")]
+    else:
+        cmd = [sys.executable, script]
     cwd = tmp_path if alone else ROOT
-    out = subprocess.run([sys.executable, script], cwd=cwd,
+    out = subprocess.run(cmd, cwd=cwd,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0

@@ -119,8 +119,9 @@ def run_block(blk, seed, max_fun_evals=100, device="cuda", deadline=None):
     (``min_final_components=20``).
 
     Returns the reference's gate (|ELBO - lnZ| < 0.5, posterior-mean RMSE
-    < 0.5, exit flag >= 0) with its values, the final VP's components
-    ``K`` (``K_train`` before the final boost, `bench.py`'s K), and what
+    < 0.5, exit flag >= 0) with its values, the components ``K`` of the
+    best iteration's VP before the final boost (`bench.py`'s K,
+    ``res.vp_train``) and ``K_final`` of the final, boosted VP, and what
     each layer of the run cost: ``timers`` (`VBMCResult.timers`), the
     seconds of each iteration (``s_per_iter``, ``s_per_iter_median``), the
     sweep kernels' launches during the run (``launches``, the difference of
@@ -177,8 +178,8 @@ def run_block(blk, seed, max_fun_evals=100, device="cuda", deadline=None):
                 exitflag=int(res.exitflag), func_count=res.func_count,
                 iters=res.iterations,
                 acquired=res.func_count - start,
-                K=int(res.vp.kmask.sum()),
-                K_train=int(res.vp_train.kmask.sum()), launches=launches,
+                K=int(res.vp_train.kmask.sum()),
+                K_final=int(res.vp.kmask.sum()), launches=launches,
                 timers=dict(res.timers), peak_device_mib=peak_mib,
                 s_per_iter=elapsed / max(res.iterations, 1),
                 s_per_iter_median=(float(np.median(iter_s)) if iter_s.size
