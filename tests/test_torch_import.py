@@ -154,7 +154,8 @@ def test_exported_builders_default_to_the_card_and_raise_without_one(name):
 
 # The scripts that run on the card: at the root, and as a module of the port.
 CARD_SCRIPTS = ["chip_smoke.py", "chip_profile.py",
-                "vbmc_tpu_torch/bench_kernels.py"]
+                "vbmc_tpu_torch/bench_kernels.py",
+                "vbmc_tpu_torch/examples.py"]
 
 
 @pytest.mark.parametrize("script", CARD_SCRIPTS)
@@ -189,6 +190,58 @@ def test_card_scripts_fail_without_a_gpu(script, alone, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# What the worked examples' phase of `chip_smoke.py` runs, in the script's
+# process and in its child process (`example_child`).
+EXAMPLE_PHASE = ("example_truth", "psycho_data", "psycho_loglike",
+                 "_psycho_q", "_psycho_box", "_gl_axis", "example_child",
+                 "ExampleAlongside", "phase_examples", "compare_example",
+                 "compare_noisy", "phase_acquisitions")
+
+
+def _example_phase_imports():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    found, names = set(), set()
+    for node in tree.body:
+        if getattr(node, "name", None) in EXAMPLE_PHASE:
+            found.add(node.name)
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Import):
+                    names.update(a.name for a in sub.names)
+                elif isinstance(sub, ast.ImportFrom):
+                    names.add(sub.module)
+    assert found == set(EXAMPLE_PHASE)
+    return names
+
+
+def test_example_phase_imports_only_the_port():
+    names = _example_phase_imports()
+    assert "vbmc_tpu_torch.examples" in names and "scipy" in names
+    bad = sorted(n for n in names if n.split(".")[0] in
+                 ("jax", "jaxlib", "vbmc_tpu"))
+    assert not bad, bad
+
+
+def test_example_phase_loads_no_jax_and_the_oracle_no_torch():
+    """In a fresh interpreter: `example_truth` (numpy and scipy) loads no
+    torch; then every module the phase and its child import loads no jax
+    and nothing of `vbmc_tpu`."""
+    mods = sorted(_example_phase_imports())
+    code = ("import importlib, sys, chip_smoke\n"
+            "chip_smoke.example_truth(2)\n"
+            "chip_smoke.example_truth(6)\n"
+            "assert 'torch' not in sys.modules\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', "
+            "'vbmc_tpu'))\n"
+            "assert not bad, bad\n"
+            "assert 'torch' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_gpconfig_copy_matches_reference():

@@ -4,12 +4,20 @@ bundled test densities (`rosenbrock_test.m`, `utils/psycho_gen.m`). Each
 example returns its VBMC result and runs on the card unless ``device``
 names another:
 
-    python -m vbmc_tpu_torch.examples [1-6]
+    python -m vbmc_tpu_torch.examples [1-6] [--device cpu]
+
+After the example's own display the command prints one JSON line: the
+example's number, ELBO, its SD, exit flag, evaluations, acquired points,
+wall seconds, timers, the launches of each sweep kernel and the posterior
+mean (for example 4 each run's, as lists), and for examples 3 and 4 the
+diagnostics' verdict.
 """
 
 from __future__ import annotations
 
-import sys
+import argparse
+import json
+import time
 
 import numpy as np
 
@@ -141,6 +149,60 @@ EXAMPLES = {1: example_1_basic, 2: example_2_bounds, 3: example_3_diagnostics,
             6: example_6_noisy_ibs}
 
 
+def summary(which, out, seconds, launches, device):
+    """The JSON-ready record of one example's return value ``out``."""
+    import torch
+
+    from vbmc_tpu_torch.vp import vp_moments
+
+    runs, diag = out if isinstance(out, tuple) else (out, None)
+    many = isinstance(runs, list)
+    per_run = {k: [] for k in ("elbo", "elbo_sd", "exit_flag", "func_count",
+                               "acquired", "timers", "mean")}
+    for res in runs if many else [runs]:
+        gen = torch.Generator(device=device).manual_seed(0)
+        mean, _ = vp_moments(res.vp, orig_flag=True, n_samples=10 ** 5,
+                             gen=gen)
+        # the examples keep the default initial design
+        start = VBMCOptions().resolve(res.vp.D).fun_eval_start
+        for k, v in (("elbo", float(res.elbo)),
+                     ("elbo_sd", float(res.elbo_sd)),
+                     ("exit_flag", int(res.exitflag)),
+                     ("func_count", int(res.func_count)),
+                     ("acquired", int(res.func_count) - start),
+                     ("timers", {t: float(x) for t, x in res.timers.items()}),
+                     ("mean", mean.cpu().tolist())):
+            per_run[k].append(v)
+    rec = {"example": which,
+           **{k: v if many else v[0] for k, v in per_run.items()},
+           "seconds": seconds, "launches": launches, "device": device}
+    if diag is not None:
+        rec["diagnostics"] = {"exitflag": int(diag.exitflag),
+                              "best": diag.best, "message": diag.message}
+    return rec
+
+
+def main(argv=None):
+    from vbmc_tpu_torch import kernels
+
+    parser = argparse.ArgumentParser(
+        prog="python -m vbmc_tpu_torch.examples",
+        description="Run one of the worked examples.")
+    parser.add_argument("which", nargs="?", type=int, default=1,
+                        choices=sorted(EXAMPLES))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args(argv)
+    sweeps = (kernels.prospective_acq, kernels.viqr_acq)
+    for k in sweeps:
+        k.launches = 0
+    t = time.monotonic()
+    out = EXAMPLES[args.which](device=args.device)
+    seconds = time.monotonic() - t
+    print(json.dumps(summary(args.which, out, seconds,
+                             {k.name: k.launches for k in sweeps},
+                             args.device)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    which = int(sys.argv[1]) if len(sys.argv) > 1 else 1
-    EXAMPLES[which]()
+    raise SystemExit(main())
