@@ -1,0 +1,7 @@
+"""Share of its roofline that the "prospective" sweep reaches in the traced window: its least possible time over the device time of everything launched inside its spans, in percent."""
+
+from benchmark.work import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "prospective_acq")
