@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from vbmc_tpu_torch import elbo
+from vbmc_tpu_torch.tracing import span
 from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.fit import get_hpd
 from vbmc_tpu_torch.gp.gp import GP, build_gp
@@ -282,16 +283,19 @@ def _propose_point(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
                    n_box: int, max_evals: int, popsize: int,
                    smooth: bool = False):
     """One acquisition step: candidates -> sweep -> argmin -> CMA-ES."""
-    Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search, n_heavy,
-                                n_mvn, n_box)
-    acq = sweep_acquisition(cfg, name, Xs, vp, gp, state, smooth=smooth)
+    with span("search"):
+        Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search,
+                                    n_heavy, n_mvn, n_box)
+    with span("sweep"):
+        acq = sweep_acquisition(cfg, name, Xs, vp, gp, state, smooth=smooth)
 
     def f_batch(xs):
         return evaluate_acquisition(cfg, name, xs, vp, gp, state,
                                     smooth=smooth)
 
-    return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
-                              max_evals, popsize)
+    with span("refine"):
+        return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
+                                  max_evals, popsize)
 
 
 def _propose_point_is(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
@@ -303,36 +307,41 @@ def _propose_point_is(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
     candidates -> sweep -> argmin -> CMA-ES on the plain evaluation. The
     set is rebuilt for every point: the GP posterior changes as
     evaluations accrue (`activesample_vbmc.m:208-211`)."""
-    ais = build_is_state_core(gen, cfg, name, vp, gp, n_is_vp, n_is_box,
-                              n_is_mcmc, mh_steps=mh_steps,
-                              fess_thresh=fess_thresh)
-    Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search, n_heavy,
-                                n_mvn, n_box)
-    acq = sweep_is_acquisition(cfg, name, Xs, vp, gp, state, ais)
+    with span("is_set"):
+        ais = build_is_state_core(gen, cfg, name, vp, gp, n_is_vp, n_is_box,
+                                  n_is_mcmc, mh_steps=mh_steps,
+                                  fess_thresh=fess_thresh)
+    with span("search"):
+        Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search,
+                                    n_heavy, n_mvn, n_box)
+    with span("sweep"):
+        acq = sweep_is_acquisition(cfg, name, Xs, vp, gp, state, ais)
 
     def f_batch(xs):
         return evaluate_is_acquisition(cfg, name, xs, vp, gp, state, ais)
 
-    return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
-                              max_evals, popsize)
+    with span("refine"):
+        return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
+                                  max_evals, popsize)
 
 
 def gp_reupdate(cfg: GPConfig, gp: GP, logger: FunctionLogger) -> GP:
     """Refresh the GP posterior on the current training data (with the
     logger's noise variances), keeping the hyperparameter samples
     (`misc/gpreupdate.m`)."""
-    X, y, s2 = logger.training_data()
-    n = X.shape[0]
-    nb = bucket_n(n)
     dev, dt = gp.X.device, gp.X.dtype
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev, dtype=dt)
 
-    return build_gp(cfg, t(pad_to(X, nb)), t(pad_to(y, nb)),
-                    t(np.zeros(nb) if s2 is None else pad_to(s2, nb)),
-                    torch.as_tensor(np.arange(nb) < n, device=dev), gp.hyp,
-                    gp.hyp_mask)
+    with span("gp_update"):
+        X, y, s2 = logger.training_data()
+        n = X.shape[0]
+        nb = bucket_n(n)
+        return build_gp(cfg, t(pad_to(X, nb)), t(pad_to(y, nb)),
+                        t(np.zeros(nb) if s2 is None else pad_to(s2, nb)),
+                        torch.as_tensor(np.arange(nb) < n, device=dev),
+                        gp.hyp, gp.hyp_mask)
 
 
 def _geomean_length_scale(cfg: GPConfig, gp: GP) -> np.ndarray:
@@ -450,11 +459,14 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                 # The importance-sampling set is rebuilt for every point:
                 # the GP changes as evaluations accrue
                 # (`activesample_vbmc.m:208-211`).
-                ais = build_is_state_core(
-                    gen, cfg, acq_name, vp, gp, is_sizes["n_is_vp"],
-                    is_sizes["n_is_box"], is_sizes["n_is_mcmc"],
-                    mh_steps=is_sizes["mh_steps"],
-                    fess_thresh=is_sizes["fess_thresh"]) if use_is else None
+                ais = None
+                if use_is:
+                    with span("is_set"):
+                        ais = build_is_state_core(
+                            gen, cfg, acq_name, vp, gp, is_sizes["n_is_vp"],
+                            is_sizes["n_is_box"], is_sizes["n_is_mcmc"],
+                            mh_steps=is_sizes["mh_steps"],
+                            fess_thresh=is_sizes["fess_thresh"])
 
                 def f_batch(xs, st=state):
                     if ais is not None:
@@ -463,46 +475,49 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                     return evaluate_acquisition(cfg, acq_name, xs, vp, gp, st,
                                                 smooth=smooth)
 
-                Xs = real_to_int(logger.trinfo, get_search_points(
-                    gen, ns, vp, logger, sb, options,
-                    search_cache=search_cache), integer_mask)
-                if ais is not None:
-                    acq = sweep_is_acquisition(cfg, acq_name, Xs, vp, gp,
-                                               state, ais)
-                else:
-                    acq = sweep_acquisition(cfg, acq_name, Xs, vp, gp, state,
-                                            smooth=smooth)
-                acq = torch.where(torch.isfinite(acq), acq, torch.inf)
-                best = torch.argmin(acq)
-                x_best_t, f_best = Xs[best], float(acq[best])
-
-                # CMA-ES refinement of the winner (`activesample:246-330`).
-                if options.search_optimizer == "cmaes":
-                    if options.search_cmaes_vp_init:
-                        if insigma_vp is None:
-                            _, cov = vp_moments(vp, orig_flag=False)
-                            insigma_vp = torch.sqrt(
-                                torch.diagonal(cov).clamp_min(1e-12))
-                        insigma = insigma_vp
+                with span("search"):
+                    Xs = real_to_int(logger.trinfo, get_search_points(
+                        gen, ns, vp, logger, sb, options,
+                        search_cache=search_cache), integer_mask)
+                with span("sweep"):
+                    if ais is not None:
+                        acq = sweep_is_acquisition(cfg, acq_name, Xs, vp, gp,
+                                                   state, ais)
                     else:
-                        X_t, y_t, _ = logger.training_data()
-                        X_hpd, _ = get_hpd(X_t, y_t, options.hpd_frac)
-                        insigma = t(np.maximum(X_hpd.std(0), 1e-6))
-                    res = cmaes_minimize(
-                        gen, f_batch, x_best_t, insigma,
-                        torch.minimum(x_best_t, sb_lb),
-                        torch.maximum(x_best_t, sb_ub),
-                        max_evals=options.search_max_fun_evals,
-                        popsize=options.search_cmaes_popsize)
-                    x_ref, f_ref = res.x_best, float(res.f_best)
-                    if has_int:
-                        # rounding may change the value: evaluate there
-                        x_ref = real_to_int(logger.trinfo, x_ref[None, :],
-                                            integer_mask)[0]
-                        f_ref = float(f_batch(x_ref[None, :])[0])
-                    if f_ref < f_best:
-                        x_best_t, f_best = x_ref, f_ref
-                x_best = to_np(x_best_t)
+                        acq = sweep_acquisition(cfg, acq_name, Xs, vp, gp,
+                                                state, smooth=smooth)
+                with span("refine"):
+                    acq = torch.where(torch.isfinite(acq), acq, torch.inf)
+                    best = torch.argmin(acq)
+                    x_best_t, f_best = Xs[best], float(acq[best])
+
+                    # CMA-ES refinement of the winner (`activesample:246-330`).
+                    if options.search_optimizer == "cmaes":
+                        if options.search_cmaes_vp_init:
+                            if insigma_vp is None:
+                                _, cov = vp_moments(vp, orig_flag=False)
+                                insigma_vp = torch.sqrt(
+                                    torch.diagonal(cov).clamp_min(1e-12))
+                            insigma = insigma_vp
+                        else:
+                            X_t, y_t, _ = logger.training_data()
+                            X_hpd, _ = get_hpd(X_t, y_t, options.hpd_frac)
+                            insigma = t(np.maximum(X_hpd.std(0), 1e-6))
+                        res = cmaes_minimize(
+                            gen, f_batch, x_best_t, insigma,
+                            torch.minimum(x_best_t, sb_lb),
+                            torch.maximum(x_best_t, sb_ub),
+                            max_evals=options.search_max_fun_evals,
+                            popsize=options.search_cmaes_popsize)
+                        x_ref, f_ref = res.x_best, float(res.f_best)
+                        if has_int:
+                            # rounding may change the value: evaluate there
+                            x_ref = real_to_int(logger.trinfo, x_ref[None, :],
+                                                integer_mask)[0]
+                            f_ref = float(f_batch(x_ref[None, :])[0])
+                        if f_ref < f_best:
+                            x_best_t, f_best = x_ref, f_ref
+                    x_best = to_np(x_best_t)
 
                 # Repeated observations of a noisy target
                 # (`activesample_vbmc.m:334-365`): when acquiring at a point
@@ -528,7 +543,8 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                         else:
                             optim_state.repeated_obs_streak = 0
 
-        y_new, _ = logger.evaluate(x_best)
+        with span("evaluate"):
+            y_new, _ = logger.evaluate(x_best)
         if sb.expand(x_best):
             sb_lb, sb_ub = t(sb.lb), t(sb.ub)
         # The acquisition's debug record (`activesample_vbmc.m:403-409`).
@@ -541,19 +557,20 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
         if i == n_points - 1:
             break
         if full_update and quick_updater is not None:
-            do_update = True
-            if fess_thresh < 1.0:
-                # fESS gate (`activesample_vbmc.m:436-445`): skip the
-                # retrain and refit while the VP still matches the
-                # refreshed GP well enough.
-                gp_tmp = gp_reupdate(cfg, gp, logger)
-                do_update = fractional_ess(gen, cfg, vp, gp_tmp,
-                                           100) <= fess_thresh
-                if not do_update:
-                    gp = gp_tmp
-            if do_update:
-                gp, vp, gls = quick_updater(gen, logger, gp, vp)
-                insigma_vp = None
+            with span("full_update"):
+                do_update = True
+                if fess_thresh < 1.0:
+                    # fESS gate (`activesample_vbmc.m:436-445`): skip the
+                    # retrain and refit while the VP still matches the
+                    # refreshed GP well enough.
+                    gp_tmp = gp_reupdate(cfg, gp, logger)
+                    do_update = fractional_ess(gen, cfg, vp, gp_tmp,
+                                               100) <= fess_thresh
+                    if not do_update:
+                        gp = gp_tmp
+                if do_update:
+                    gp, vp, gls = quick_updater(gen, logger, gp, vp)
+                    insigma_vp = None
         else:
             gp = gp_reupdate(cfg, gp, logger)
     return gp_reupdate(cfg, gp, logger), vp

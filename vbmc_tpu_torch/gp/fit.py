@@ -23,6 +23,7 @@ from vbmc_tpu_torch.gp.outwarp import outwarp_info
 from vbmc_tpu_torch.optim import minimize_lbfgs_bounded
 from vbmc_tpu_torch.samplers.ensemble import ensemble_slice_final
 from vbmc_tpu_torch.samplers.slice import slice_sample_chains
+from vbmc_tpu_torch.tracing import span
 from vbmc_tpu_torch.utils.math import bucket_n, bucket_ns, pad_to
 
 
@@ -258,12 +259,13 @@ def map_sample_assemble_core(cfg: GPConfig, gen: torch.Generator, x0s_map,
     Returns (buf (sb, nhyp), hyp_mask (sb,), hyp_map (nhyp,),
     gated samples (sb, nhyp))."""
     obj = _objective(cfg, prior, X, y, s2, mask)
-    if maxiter > 0:
-        hyp_opt, f_opt = minimize_lbfgs_bounded(obj, x0s_map, prior.lb,
-                                                prior.ub, maxiter=maxiter)
-    else:
-        with torch.no_grad():
-            hyp_opt, f_opt = x0s_map, obj(x0s_map)
+    with span("map"):
+        if maxiter > 0:
+            hyp_opt, f_opt = minimize_lbfgs_bounded(obj, x0s_map, prior.lb,
+                                                    prior.ub, maxiter=maxiter)
+        else:
+            with torch.no_grad():
+                hyp_opt, f_opt = x0s_map, obj(x0s_map)
     best = torch.argmin(torch.where(torch.isfinite(f_opt), f_opt, torch.inf))
     hyp_map = torch.minimum(torch.maximum(hyp_opt[best], prior.lb + 1e-12),
                             prior.ub - 1e-12)
@@ -281,7 +283,7 @@ def map_sample_assemble_core(cfg: GPConfig, gen: torch.Generator, x0s_map,
         in_bounds = ((h >= prior.lb) & (h <= prior.ub)).all(-1)
         return torch.where(in_bounds & torch.isfinite(lp), lp, -torch.inf)
 
-    with torch.no_grad():
+    with span("sample"), torch.no_grad():
         if sampler == "ensemble":
             flat, lp_flat = ensemble_slice_final(gen, logpdf, x0s_chain,
                                                  prior.lb, prior.ub,
@@ -358,10 +360,10 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
         design = plb_np + u * (pub_np - plb_np)
         n_s = min(starts.shape[0], n_design // 2)
         design[:n_s] = starts[:n_s]
-        with torch.no_grad():
+        with span("design"), torch.no_grad():
             nll = torch.cat([obj(t(design[i:i + CHUNK]))
                              for i in range(0, n_design, CHUNK)])
-        nll = nll.cpu().double().numpy()
+            nll = nll.cpu().double().numpy()
         nll = np.where(np.isfinite(nll), nll, np.inf)
         order = np.argsort(nll)
         x0s = design[order[:max(opts.nopts, 1)]]
@@ -409,26 +411,29 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
             cfg, gen, t(x0s_map), t(eps), t(widths), prior, Xp, yp, s2p,
             mask, ns, max(burn // C, opts.thin), opts.thin, keep_max, False,
             map_iters, sampler=sampler)
-        gp = build_gp(cfg, Xp, yp, s2p, mask, buf, hyp_mask)
-        hyp_map = hyp_map.cpu().double().numpy()
-        hyp_full = flat.cpu().double().numpy()
+        with span("build"):
+            gp = build_gp(cfg, Xp, yp, s2p, mask, buf, hyp_mask)
+            # the copies wait for the factorisations queued above
+            hyp_map = hyp_map.cpu().double().numpy()
+            hyp_full = flat.cpu().double().numpy()
     else:
         if map_iters > 0:
-            hyp_opt, f_opt = minimize_lbfgs_bounded(obj, t(x0s_map), prior.lb,
-                                                    prior.ub,
-                                                    maxiter=map_iters)
-            f_opt = f_opt.cpu().double().numpy()
-            best = int(np.nanargmin(np.where(np.isfinite(f_opt), f_opt,
-                                             np.inf)))
-            hyp_map = hyp_opt[best].cpu().double().numpy()
+            with span("map"):
+                hyp_opt, f_opt = minimize_lbfgs_bounded(
+                    obj, t(x0s_map), prior.lb, prior.ub, maxiter=map_iters)
+                f_opt = f_opt.cpu().double().numpy()
+                best = int(np.nanargmin(np.where(np.isfinite(f_opt), f_opt,
+                                                 np.inf)))
+                hyp_map = hyp_opt[best].cpu().double().numpy()
         else:
             hyp_map = x0s_map[0]
         hyp_map = np.clip(hyp_map, lb_np + 1e-12, ub_np - 1e-12)
         sb = bucket_ns(1)
         hyp_full = hyp_map[None, :]
-        gp = build_gp(cfg, Xp, yp, s2p, mask,
-                      t(np.tile(hyp_map[None, :], (sb, 1))),
-                      torch.as_tensor(np.arange(sb) < 1, device=device))
+        with span("build"):
+            gp = build_gp(cfg, Xp, yp, s2p, mask,
+                          t(np.tile(hyp_map[None, :], (sb, 1))),
+                          torch.as_tensor(np.arange(sb) < 1, device=device))
     info = dict(hyp_map=hyp_map, hyp_full=hyp_full, prior=prior,
                 ns_samples=ns, widths_default=widths_default)
     return gp, info

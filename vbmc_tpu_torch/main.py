@@ -24,6 +24,7 @@ import torch
 
 from vbmc_tpu_torch.options import VBMCOptions, ResolvedOptions
 from vbmc_tpu_torch import state as st
+from vbmc_tpu_torch import tracing
 from vbmc_tpu_torch.hedge import AcqHedge
 from vbmc_tpu_torch.transforms import (create_trinfo, direct_np, inverse_np,
                                        LOGIT, PROBIT, STUDENT4)
@@ -64,6 +65,12 @@ _OUTWARP_IDS = {"negpow": OUTWARP_NEGPOW, "negpowc1": OUTWARP_NEGPOWC1,
 
 @dataclasses.dataclass
 class VBMCResult:
+    """What `vbmc` returns. ``timers`` holds the run's seconds by span path
+    (`tracing`: ``active_sampling``, ``gp_train.map``, ...; the five
+    phases always, 0 where a phase never ran), ``final_boost``, ``total``
+    and, after a retry that won, ``first_run``. ``spans`` is the run's span
+    log, one ``(iteration, path, t0_ns, t1_ns)`` per span in the order the
+    spans closed, on `time.monotonic_ns()`."""
     vp: VariationalPosterior
     elbo: float
     elbo_sd: float
@@ -82,6 +89,17 @@ class VBMCResult:
     warps_made: int = 0        # rotoscale warps applied
     warps_undone: int = 0      # of which undone by the ELBO check
     quick_updates: int = 0     # per-point full updates (noisy targets)
+    spans: list = dataclasses.field(default_factory=list)
+
+
+# The top-level spans of an iteration that every `timer` names, 0 where one
+# did not run.
+PHASES = ("active_sampling", "gp_train", "variational_fit", "finalize",
+          "warping")
+
+
+def _with_phases(seconds: dict) -> dict:
+    return {**dict.fromkeys(PHASES, 0.0), **seconds}
 
 
 def bounds_check(x0, lb, ub, plb, pub, D):
@@ -367,7 +385,18 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
 
     ``x0`` may be a variational posterior (a warm start): 100 draws from it
     (seeded with ``options.seed + 77``) give the starting points and, when
-    none are given, the plausible bounds (their 5% and 95% quantiles)."""
+    none are given, the plausible bounds (their 5% and 95% quantiles).
+
+    The call's spans (`tracing`) roll up into each iteration's ``timer``
+    (the spans closed since the previous iteration's) and into the result's
+    ``timers`` and ``spans``."""
+    tracer = tracing.Tracer()
+    with tracer.current():
+        return _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device,
+                     dtype)
+
+
+def _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device, dtype):
     t0 = time.monotonic()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -467,9 +496,6 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     hedge = None
     if opt.acq_hedge and len(acq_names) > 1:
         hedge = AcqHedge(names=list(acq_names), decay=opt.acq_hedge_decay)
-    timers = dict(active_sampling=0.0, gp_train=0.0, variational_fit=0.0,
-                  finalize=0.0, warping=0.0)
-    timers_prev = dict(timers)
     is_finished = False
     exitflag = 0
     msg = ""
@@ -488,6 +514,7 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     while not is_finished:
         it = len(stats) + 1
         state.iter = it
+        tracer.iteration = it
         vp_old = vp
         notes = []
         if it == 1 and state.warmup:
@@ -507,217 +534,222 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                    and state.vp_K >= opt.warp_min_k
                    and stats.last.rindex < opt.warp_tol_reliability)
         if do_warp:
-            t_warp = time.monotonic()
-            from vbmc_tpu_torch import warp as warp_mod
-            idx_b = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
-                                      frac_back=opt.best_frac_back,
-                                      rank_criterion=opt.rank_criterion)
-            vp_for_warp = stats.iterations[idx_b].vp
-            snapshot = dict(
-                vp=vp, gp=gp, trinfo=logger.trinfo, plb_t=plb_t.copy(),
-                pub_t=pub_t.copy(), sb_lb=sb.lb.copy(), sb_ub=sb.ub.copy(),
-                sb_lbh=sb.lb_hard.copy(), sb_ubh=sb.ub_hard.copy(),
-                hyp_warm=hyp_warm, hyp_runcov=state.hyp_runcov,
-                run_mean=state.run_mean, run_cov=state.run_cov,
-                elbo=elbo, elbo_sd=elbo_sd)
-            trinfo_old_warp = logger.trinfo
-            trinfo_new = warp_mod.compute_rotoscale(
-                vp_for_warp, corr_thresh=opt.warp_roto_corr_thresh,
-                cov_reg=opt.warp_cov_reg)
-            seed_w = int(rng.integers(2 ** 31 - 1))
-            plb_t, pub_t = warp_mod.update_plausible_bounds(
-                trinfo_new, plb, pub, seed_w)
-            sb_lb_new, sb_ub_new = warp_mod.remap_search_box(
-                trinfo_old_warp, trinfo_new, sb.lb, sb.ub, seed_w + 1)
-            logger.retransform(trinfo_new)
-            vp, hyp_warped = warp_mod.warp_gp_and_vp(
-                trinfo_new, vp, gp, cfg, temperature=opt.temperature)
-            # The rotated space is unbounded; hard bounds are checked in
-            # original coordinates (`warp_input_vbmc.m:132-148`).
-            sb = SearchBounds(lb=sb_lb_new, ub=sb_ub_new,
-                              lb_hard=np.full(D, -np.inf),
-                              ub_hard=np.full(D, np.inf))
-            if opt.bandwidth > 0:
-                opt.delta_smoothing = opt.bandwidth * (pub_t - plb_t)
-            hyp_warm = hyp_warped
-            state.hyp_runcov = None
-            state.run_mean = None
-            state.run_cov = None
-            state.warping_count += 1
-            state.last_warping = it
-            state.last_successful_warping = it
-            warps["made"] += 1
-            notes.append("rotoscale")
+            with tracing.span("warping"):
+                from vbmc_tpu_torch import warp as warp_mod
+                idx_b = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
+                                          frac_back=opt.best_frac_back,
+                                          rank_criterion=opt.rank_criterion)
+                vp_for_warp = stats.iterations[idx_b].vp
+                snapshot = dict(
+                    vp=vp, gp=gp, trinfo=logger.trinfo, plb_t=plb_t.copy(),
+                    pub_t=pub_t.copy(), sb_lb=sb.lb.copy(), sb_ub=sb.ub.copy(),
+                    sb_lbh=sb.lb_hard.copy(), sb_ubh=sb.ub_hard.copy(),
+                    hyp_warm=hyp_warm, hyp_runcov=state.hyp_runcov,
+                    run_mean=state.run_mean, run_cov=state.run_cov,
+                    elbo=elbo, elbo_sd=elbo_sd)
+                trinfo_old_warp = logger.trinfo
+                with tracing.span("rotoscale"):
+                    trinfo_new = warp_mod.compute_rotoscale(
+                        vp_for_warp, corr_thresh=opt.warp_roto_corr_thresh,
+                        cov_reg=opt.warp_cov_reg)
+                seed_w = int(rng.integers(2 ** 31 - 1))
+                with tracing.span("bounds"):
+                    plb_t, pub_t = warp_mod.update_plausible_bounds(
+                        trinfo_new, plb, pub, seed_w)
+                    sb_lb_new, sb_ub_new = warp_mod.remap_search_box(
+                        trinfo_old_warp, trinfo_new, sb.lb, sb.ub,
+                        seed_w + 1)
+                with tracing.span("transform"):
+                    logger.retransform(trinfo_new)
+                    vp, hyp_warped = warp_mod.warp_gp_and_vp(
+                        trinfo_new, vp, gp, cfg, temperature=opt.temperature)
+                # The rotated space is unbounded; hard bounds are checked in
+                # original coordinates (`warp_input_vbmc.m:132-148`).
+                sb = SearchBounds(lb=sb_lb_new, ub=sb_ub_new,
+                                  lb_hard=np.full(D, -np.inf),
+                                  ub_hard=np.full(D, np.inf))
+                if opt.bandwidth > 0:
+                    opt.delta_smoothing = opt.bandwidth * (pub_t - plb_t)
+                hyp_warm = hyp_warped
+                state.hyp_runcov = None
+                state.run_mean = None
+                state.run_cov = None
+                state.warping_count += 1
+                state.last_warping = it
+                state.last_successful_warping = it
+                warps["made"] += 1
+                notes.append("rotoscale")
 
-            if opt.warp_undo_check:
-                # Retrain and refit in the warped space; undo if the ELBO
-                # regresses (vbmc.m:566-624).
-                topts = _gp_train_options(state, stats, opt, logger,
-                                          uncertainty_level)
-                X_tr, y_tr, s2_tr = logger.training_data(
-                    noise_shaping=shaping, options=opt)
-                cfg = _recenter_cfg(cfg, X_tr, y_tr)
-                gp, gpinfo_w = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t,
-                                        pub_t, topts, hyp0=hyp_warped,
-                                        host_seed=int(rng.integers(2 ** 31 - 1)),
-                                        device=device, dtype=dtype)
-                res_w = vpoptimize(gen, cfg, vp, gp, state.vp_K, opt,
-                                   warmup=state.warmup,
-                                   entropy_switch=state.entropy_switch,
-                                   n_fast_opts=int(math.ceil(
-                                       opt.evalopt("ns_elbo", state.vp_K))),
-                                   n_slow_opts=opt.elbo_starts,
-                                   host_seed=int(rng.integers(2 ** 31 - 1)))
-                fail = (res_w.elbo < snapshot["elbo"] + opt.warp_tol_improvement
-                        or res_w.elbo_sd > (snapshot["elbo_sd"]
-                                            * opt.warp_tol_sd_multiplier
-                                            + opt.warp_tol_sd_base))
-                if fail:
-                    vp, gp = snapshot["vp"], snapshot["gp"]
-                    logger.retransform(snapshot["trinfo"])
-                    plb_t, pub_t = snapshot["plb_t"], snapshot["pub_t"]
-                    if opt.bandwidth > 0:
-                        opt.delta_smoothing = opt.bandwidth * (pub_t - plb_t)
-                    sb = SearchBounds(lb=snapshot["sb_lb"],
-                                      ub=snapshot["sb_ub"],
-                                      lb_hard=snapshot["sb_lbh"],
-                                      ub_hard=snapshot["sb_ubh"])
-                    hyp_warm = snapshot["hyp_warm"]
-                    state.hyp_runcov = snapshot["hyp_runcov"]
-                    state.run_mean = snapshot["run_mean"]
-                    state.run_cov = snapshot["run_cov"]
-                    state.last_successful_warping = -math.inf
-                    state.warping_count += 1  # a failed warp counts twice
-                    warps["undone"] += 1
-                    notes.append("undo")
-                else:
-                    vp = res_w.vp
-                    state.vp_K = int(to_np(vp.kmask).sum())
-                    hyp_warm = gpinfo_w["hyp_full"]
-                    state.recompute_var_post = True
-            timers["warping"] += time.monotonic() - t_warp
+                if opt.warp_undo_check:
+                    # Retrain and refit in the warped space; undo if the ELBO
+                    # regresses (vbmc.m:566-624).
+                    topts = _gp_train_options(state, stats, opt, logger,
+                                              uncertainty_level)
+                    X_tr, y_tr, s2_tr = logger.training_data(
+                        noise_shaping=shaping, options=opt)
+                    cfg = _recenter_cfg(cfg, X_tr, y_tr)
+                    gp, gpinfo_w = train_gp(
+                        gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t, topts,
+                        hyp0=hyp_warped,
+                        host_seed=int(rng.integers(2 ** 31 - 1)),
+                        device=device, dtype=dtype)
+                    res_w = vpoptimize(
+                        gen, cfg, vp, gp, state.vp_K, opt,
+                        warmup=state.warmup,
+                        entropy_switch=state.entropy_switch,
+                        n_fast_opts=int(math.ceil(
+                            opt.evalopt("ns_elbo", state.vp_K))),
+                        n_slow_opts=opt.elbo_starts,
+                        host_seed=int(rng.integers(2 ** 31 - 1)))
+                    fail = (res_w.elbo < (snapshot["elbo"]
+                                          + opt.warp_tol_improvement)
+                            or res_w.elbo_sd > (snapshot["elbo_sd"]
+                                                * opt.warp_tol_sd_multiplier
+                                                + opt.warp_tol_sd_base))
+                    if fail:
+                        vp, gp = snapshot["vp"], snapshot["gp"]
+                        logger.retransform(snapshot["trinfo"])
+                        plb_t, pub_t = snapshot["plb_t"], snapshot["pub_t"]
+                        if opt.bandwidth > 0:
+                            opt.delta_smoothing = (opt.bandwidth
+                                                   * (pub_t - plb_t))
+                        sb = SearchBounds(lb=snapshot["sb_lb"],
+                                          ub=snapshot["sb_ub"],
+                                          lb_hard=snapshot["sb_lbh"],
+                                          ub_hard=snapshot["sb_ubh"])
+                        hyp_warm = snapshot["hyp_warm"]
+                        state.hyp_runcov = snapshot["hyp_runcov"]
+                        state.run_mean = snapshot["run_mean"]
+                        state.run_cov = snapshot["run_cov"]
+                        state.last_successful_warping = -math.inf
+                        state.warping_count += 1  # a failed warp counts twice
+                        warps["undone"] += 1
+                        notes.append("undo")
+                    else:
+                        vp = res_w.vp
+                        state.vp_K = int(to_np(vp.kmask).sum())
+                        hyp_warm = gpinfo_w["hyp_full"]
+                        state.recompute_var_post = True
 
         # ------------------------------------------------ active sampling
-        t = time.monotonic()
-        if state.skip_active_sampling:
-            state.skip_active_sampling = False
-        elif gp is None:
-            cache_t, _ = initial_design(
-                gen, logger, opt.fun_eval_start, plb_t, pub_t,
-                x0_cache=direct_np(trinfo, x0),
-                fvals_cache=(np.asarray(opt.fvals, float)
-                             if opt.fvals is not None else None),
-                init_design=opt.init_design)
-            if len(cache_t):
-                # kept in original space, so that it survives input warps
-                search_cache = inverse_np(logger.trinfo, cache_t)
-        else:
-            if hedge is not None:
-                acq_name = hedge.choose(rng)
+        with tracing.span("active_sampling"):
+            if state.skip_active_sampling:
+                state.skip_active_sampling = False
+            elif gp is None:
+                cache_t, _ = initial_design(
+                    gen, logger, opt.fun_eval_start, plb_t, pub_t,
+                    x0_cache=direct_np(trinfo, x0),
+                    fvals_cache=(np.asarray(opt.fvals, float)
+                                 if opt.fvals is not None else None),
+                    init_design=opt.init_design)
+                if len(cache_t):
+                    # kept in original space, so that it survives input warps
+                    search_cache = inverse_np(logger.trinfo, cache_t)
             else:
-                acq_name = acq_names[int(rng.integers(len(acq_names)))]
-            # Full per-point updates near the end of warm-up or on unstable
-            # runs (noisy-target default, `activesample_vbmc.m:46-76`).
-            rindex_prev = stats.last.rindex if len(stats) else math.inf
-            full_update = (
-                (opt.active_sample_gp_update or opt.active_sample_vp_update)
-                and ((it - opt.active_sample_full_update_past_warmup)
-                     <= state.last_warmup
-                     or rindex_prev > opt.active_sample_full_update_threshold))
-            quick_updater = None
-            if full_update:
-                quick_updater = QuickUpdater(
-                    cfg, opt, _gp_train_options(state, stats, opt, logger,
-                                                uncertainty_level),
-                    plb_t, pub_t, warmup=state.warmup,
-                    entropy_switch=state.entropy_switch, K=state.vp_K,
-                    do_gp=bool(opt.active_sample_gp_update),
-                    do_vp=bool(opt.active_sample_vp_update),
-                    noise_shaping=shaping)
-            gp, vp = active_sample(gen, cfg, logger, opt.fun_evals_per_iter,
-                                   vp, gp, sb, opt, acq_name=acq_name,
-                                   tol_gp_var=opt.tol_gp_var,
-                                   full_update=full_update,
-                                   quick_updater=quick_updater,
-                                   fess_thresh=opt.active_sample_fess_thresh,
-                                   optim_state=state,
-                                   search_cache=(
-                                       direct_np(logger.trinfo, search_cache)
-                                       if search_cache is not None else None))
-            if quick_updater is not None:
-                quick_updates += quick_updater.updates
-        timers["active_sampling"] += time.monotonic() - t
+                if hedge is not None:
+                    acq_name = hedge.choose(rng)
+                else:
+                    acq_name = acq_names[int(rng.integers(len(acq_names)))]
+                # Full per-point updates near the end of warm-up or on unstable
+                # runs (noisy-target default, `activesample_vbmc.m:46-76`).
+                rindex_prev = stats.last.rindex if len(stats) else math.inf
+                full_update = (
+                    (opt.active_sample_gp_update
+                     or opt.active_sample_vp_update)
+                    and ((it - opt.active_sample_full_update_past_warmup)
+                         <= state.last_warmup
+                         or rindex_prev
+                         > opt.active_sample_full_update_threshold))
+                quick_updater = None
+                if full_update:
+                    quick_updater = QuickUpdater(
+                        cfg, opt, _gp_train_options(state, stats, opt, logger,
+                                                    uncertainty_level),
+                        plb_t, pub_t, warmup=state.warmup,
+                        entropy_switch=state.entropy_switch, K=state.vp_K,
+                        do_gp=bool(opt.active_sample_gp_update),
+                        do_vp=bool(opt.active_sample_vp_update),
+                        noise_shaping=shaping)
+                gp, vp = active_sample(
+                    gen, cfg, logger, opt.fun_evals_per_iter, vp, gp, sb, opt,
+                    acq_name=acq_name, tol_gp_var=opt.tol_gp_var,
+                    full_update=full_update, quick_updater=quick_updater,
+                    fess_thresh=opt.active_sample_fess_thresh,
+                    optim_state=state,
+                    search_cache=(direct_np(logger.trinfo, search_cache)
+                                  if search_cache is not None else None))
+                if quick_updater is not None:
+                    quick_updates += quick_updater.updates
 
         # ------------------------------------------------------ GP training
-        t = time.monotonic()
-        topts = _gp_train_options(state, stats, opt, logger,
-                                  uncertainty_level)
-        X_tr, y_tr, s2_tr = logger.training_data(noise_shaping=shaping,
-                                                 options=opt)
-        hyp0 = _collect_hyp_starts(stats, hyp_warm, topts.ninit)
-        cfg = _recenter_cfg(cfg, X_tr, y_tr)
-        gp, gpinfo = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t,
-                              topts, hyp0=hyp0,
-                              host_seed=int(rng.integers(2 ** 31 - 1)),
-                              device=device, dtype=dtype)
-        hyp_warm = gpinfo["hyp_full"]
-        _update_hyp_runcov(state, gpinfo["hyp_full"], opt)
-        timers["gp_train"] += time.monotonic() - t
+        with tracing.span("gp_train"):
+            topts = _gp_train_options(state, stats, opt, logger,
+                                      uncertainty_level)
+            X_tr, y_tr, s2_tr = logger.training_data(noise_shaping=shaping,
+                                                     options=opt)
+            hyp0 = _collect_hyp_starts(stats, hyp_warm, topts.ninit)
+            cfg = _recenter_cfg(cfg, X_tr, y_tr)
+            gp, gpinfo = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t,
+                                  topts, hyp0=hyp0,
+                                  host_seed=int(rng.integers(2 ** 31 - 1)),
+                                  device=device, dtype=dtype)
+            hyp_warm = gpinfo["hyp_full"]
+            _update_hyp_runcov(state, gpinfo["hyp_full"], opt)
 
         # ------------------------------------------- variational optimization
-        t = time.monotonic()
-        K_new = st.update_K(state, stats, opt)
-        n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_new)))
-        if state.recompute_var_post or opt.always_refit_var_post:
-            n_slow = opt.elbo_starts
-            state.recompute_var_post = False
-        else:
-            n_fast = int(math.ceil(n_fast * opt.ns_elbo_incr))
-            n_slow = 1
-        res = vpoptimize(gen, cfg, vp, gp, K_new, opt, warmup=state.warmup,
-                         entropy_switch=state.entropy_switch,
-                         n_fast_opts=n_fast, n_slow_opts=n_slow,
-                         host_seed=int(rng.integers(2 ** 31 - 1)))
-        vp = res.vp
-        state.vp_K = int(to_np(vp.kmask).sum())
-        elbo, elbo_sd = res.elbo, res.elbo_sd
-        if opt.temperature > 1:
-            # the trace and the stopping rules see the real posterior's ELBO
-            _, elbo, elbo_sd = vp_train2real(vp, opt.temperature, elbo,
-                                             elbo_sd)
-        timers["variational_fit"] += time.monotonic() - t
+        with tracing.span("variational_fit"):
+            K_new = st.update_K(state, stats, opt)
+            n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_new)))
+            if state.recompute_var_post or opt.always_refit_var_post:
+                n_slow = opt.elbo_starts
+                state.recompute_var_post = False
+            else:
+                n_fast = int(math.ceil(n_fast * opt.ns_elbo_incr))
+                n_slow = 1
+            res = vpoptimize(gen, cfg, vp, gp, K_new, opt, warmup=state.warmup,
+                             entropy_switch=state.entropy_switch,
+                             n_fast_opts=n_fast, n_slow_opts=n_slow,
+                             host_seed=int(rng.integers(2 ** 31 - 1)))
+            vp = res.vp
+            state.vp_K = int(to_np(vp.kmask).sum())
+            elbo, elbo_sd = res.elbo, res.elbo_sd
+            if opt.temperature > 1:
+                # the trace and the stopping rules see the real posterior's
+                # ELBO
+                _, elbo, elbo_sd = vp_train2real(vp, opt.temperature, elbo,
+                                                 elbo_sd)
 
         # ------------------------------------------------------- finalize
-        t = time.monotonic()
-        with torch.no_grad():
-            kld = to_np(vp_kldiv(vp, vp_old, n_samples=10 ** 5,
-                                 gauss_flag=opt.kl_gauss, gen=gen))
-            mu_t, cov_t = (to_np(a) for a in vp_moments(vp, orig_flag=False))
-            sKL_true = None
-            if opt.true_mean is not None and opt.true_cov is not None:
-                tm, tc = vp_moments(vp, orig_flag=True, n_samples=10 ** 5,
-                                    gen=gen)
-                kl1, kl2 = mvn_kl(tm, tc, torch.as_tensor(
-                    np.asarray(opt.true_mean, float), device=device,
-                    dtype=tm.dtype), torch.as_tensor(
-                    np.asarray(opt.true_cov, float), device=device,
-                    dtype=tm.dtype))
-                sKL_true = 0.5 * float(kl1 + kl2)
-        fbar, vtot = _predict_padded(cfg, gp, X_tr)
-        sKL = max(0.0, 0.5 * float(np.sum(kld)))
-        lcbmax = float(np.max(fbar - opt.elcbo_impro_weight
-                              * np.sqrt(np.maximum(vtot, 0.0))))
-        state.sn2hpd = _estimate_sn2hpd(gp, logger, to_np(gp.sn2))
-        if state.run_mean is None:
-            state.run_mean, state.run_cov = mu_t, cov_t
-            state.last_run_avg = logger.n_train
-        else:
-            w_run = opt.moments_run_weight ** (logger.n_train
-                                               - state.last_run_avg)
-            state.run_mean = w_run * state.run_mean + (1 - w_run) * mu_t
-            state.run_cov = w_run * state.run_cov + (1 - w_run) * cov_t
-            state.last_run_avg = logger.n_train
-        timers["finalize"] += time.monotonic() - t
+        with tracing.span("finalize"):
+            with torch.no_grad():
+                kld = to_np(vp_kldiv(vp, vp_old, n_samples=10 ** 5,
+                                     gauss_flag=opt.kl_gauss, gen=gen))
+                mu_t, cov_t = (to_np(a)
+                               for a in vp_moments(vp, orig_flag=False))
+                sKL_true = None
+                if opt.true_mean is not None and opt.true_cov is not None:
+                    tm, tc = vp_moments(vp, orig_flag=True, n_samples=10 ** 5,
+                                        gen=gen)
+                    kl1, kl2 = mvn_kl(tm, tc, torch.as_tensor(
+                        np.asarray(opt.true_mean, float), device=device,
+                        dtype=tm.dtype), torch.as_tensor(
+                        np.asarray(opt.true_cov, float), device=device,
+                        dtype=tm.dtype))
+                    sKL_true = 0.5 * float(kl1 + kl2)
+            fbar, vtot = _predict_padded(cfg, gp, X_tr)
+            sKL = max(0.0, 0.5 * float(np.sum(kld)))
+            lcbmax = float(np.max(fbar - opt.elcbo_impro_weight
+                                  * np.sqrt(np.maximum(vtot, 0.0))))
+            state.sn2hpd = _estimate_sn2hpd(gp, logger, to_np(gp.sn2))
+            if state.run_mean is None:
+                state.run_mean, state.run_cov = mu_t, cov_t
+                state.last_run_avg = logger.n_train
+            else:
+                w_run = opt.moments_run_weight ** (logger.n_train
+                                                   - state.last_run_avg)
+                state.run_mean = w_run * state.run_mean + (1 - w_run) * mu_t
+                state.run_cov = w_run * state.run_cov + (1 - w_run) * cov_t
+                state.last_run_avg = logger.n_train
 
         stats.add(st.IterStats(
             iter=it, elbo=elbo, elbo_sd=elbo_sd, sKL=sKL, sKL_true=sKL_true,
@@ -726,68 +758,68 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
             pruned=res.pruned, varss=res.varss, lcbmax=lcbmax, vp=vp, gp=gp,
             gp_hyp=to_np(gp.hyp)[to_np(gp.hyp_mask).astype(bool)],
             gp_hyp_full=gpinfo["hyp_full"], gp_ns=gpinfo["ns_samples"],
-            timer={k: round(timers[k] - timers_prev.get(k, 0.0), 4)
-                   for k in ("active_sampling", "gp_train",
-                             "variational_fit", "finalize", "warping")}))
-        timers_prev = dict(timers)
-        stats.last.t_algoperfuneval = st.update_cost_model(state, stats)
+            timer={k: round(v, 4)
+                   for k, v in _with_phases(tracer.rollup()).items()}))
+        with tracing.span("termination"):
+            stats.last.t_algoperfuneval = st.update_cost_model(state, stats)
 
-        # -------------------------------------------- termination & warmup
-        is_finished, exitflag, msg, t_notes = st.check_termination(
-            state, stats, opt, logger.func_count)
-        notes += t_notes
-        if state.warmup and it > 1:
-            if opt.recompute_lcb_max:
-                state.lcbmax_vec = _recompute_lcbmax(cfg, gp, logger, stats,
-                                                     opt)
-            w_notes, trim_flag = st.check_warmup(state, stats, opt, logger)
-            notes += w_notes
-            if trim_flag:
-                gp = gp_reupdate(cfg, gp, logger)
-            if not state.warmup:
-                state.hyp_runcov = None
-        stats.last.warmup = state.warmup
+            # -------------------------------------------- termination & warmup
+            is_finished, exitflag, msg, t_notes = st.check_termination(
+                state, stats, opt, logger.func_count)
+            notes += t_notes
+            if state.warmup and it > 1:
+                if opt.recompute_lcb_max:
+                    state.lcbmax_vec = _recompute_lcbmax(cfg, gp, logger,
+                                                         stats, opt)
+                w_notes, trim_flag = st.check_warmup(state, stats, opt, logger)
+                notes += w_notes
+                if trim_flag:
+                    gp = gp_reupdate(cfg, gp, logger)
+                if not state.warmup:
+                    state.hyp_runcov = None
+            stats.last.warmup = state.warmup
 
-        # Fitness-shaping threshold check (vbmc.m:838-846): raise the
-        # warp's threshold when the posterior's tail of low density reaches
-        # too far below ymax.
-        if (state.outwarp_delta is not None
-                and state.R < opt.warp_tol_reliability):
-            with torch.no_grad():
-                Xrnd = to_np(vp_rnd(vp, gen, 2 ** 14, orig_flag=False))
-            ymu, _ = _predict_padded(cfg, gp, Xrnd)
-            ydelta = max(0.0, logger.ymax - float(np.quantile(ymu, 1e-3)))
-            if (ydelta > state.outwarp_delta * opt.out_warp_thresh_tol
-                    and state.R < 1):
-                state.outwarp_delta *= opt.out_warp_thresh_mult
+            # Fitness-shaping threshold check (vbmc.m:838-846): raise the
+            # warp's threshold when the posterior's tail of low density reaches
+            # too far below ymax.
+            if (state.outwarp_delta is not None
+                    and state.R < opt.warp_tol_reliability):
+                with torch.no_grad():
+                    Xrnd = to_np(vp_rnd(vp, gen, 2 ** 14, orig_flag=False))
+                ymu, _ = _predict_padded(cfg, gp, Xrnd)
+                ydelta = max(0.0, logger.ymax - float(np.quantile(ymu, 1e-3)))
+                if (ydelta > state.outwarp_delta * opt.out_warp_thresh_tol
+                        and state.R < 1):
+                    state.outwarp_delta *= opt.out_warp_thresh_mult
 
-        # Hedge reward: ELCBO improvement over the previous iteration
-        # (`vbmc.m:848-850`, `acqhedge_vbmc.m:28-56`).
-        if hedge is not None and it > 1:
-            prev = stats.iterations[-2]
-            impro = ((elbo - opt.elcbo_impro_weight * elbo_sd)
-                     - (prev.elbo - opt.elcbo_impro_weight * prev.elbo_sd))
-            hedge.update(impro, opt.fun_evals_per_iter)
+            # Hedge reward: ELCBO improvement over the previous iteration
+            # (`vbmc.m:848-850`, `acqhedge_vbmc.m:28-56`).
+            if hedge is not None and it > 1:
+                prev = stats.iterations[-2]
+                impro = ((elbo - opt.elcbo_impro_weight * elbo_sd)
+                         - (prev.elbo - opt.elcbo_impro_weight * prev.elbo_sd))
+                hedge.update(impro, opt.fun_evals_per_iter)
 
-        if opt.output_fcn is not None:
-            stop_req = opt.output_fcn(dict(
-                iteration=it, elbo=elbo, elbo_sd=elbo_sd, sKL=sKL,
-                K=state.vp_K, rindex=state.R, func_count=logger.func_count,
-                vp=vp, warmup=state.warmup, timer=stats.last.timer))
-            if stop_req:
-                is_finished = True
-                msg = msg or "Inference stopped by the user OutputFcn."
+        with tracing.span("output_fcn"):
+            if opt.output_fcn is not None:
+                stop_req = opt.output_fcn(dict(
+                    iteration=it, elbo=elbo, elbo_sd=elbo_sd, sKL=sKL,
+                    K=state.vp_K, rindex=state.R, func_count=logger.func_count,
+                    vp=vp, warmup=state.warmup, timer=stats.last.timer))
+                if stop_req:
+                    is_finished = True
+                    msg = msg or "Inference stopped by the user OutputFcn."
 
-        # Live iteration plot (`private/vbmc_iterplot.m`). A failed plot
-        # turns plotting off with a warning, as in the reference.
-        if opt.plot:
-            from vbmc_tpu_torch.plotting import iteration_plot
-            try:
-                iteration_plot(stats, vp, logger)
-            except Exception as e:
-                import warnings
-                warnings.warn(f"iteration plot disabled: {e!r}")
-                opt.plot = False
+            # Live iteration plot (`private/vbmc_iterplot.m`). A failed plot
+            # turns plotting off with a warning, as in the reference.
+            if opt.plot:
+                from vbmc_tpu_torch.plotting import iteration_plot
+                try:
+                    iteration_plot(stats, vp, logger)
+                except Exception as e:
+                    import warnings
+                    warnings.warn(f"iteration plot disabled: {e!r}")
+                    opt.plot = False
 
         if display:
             print(f" {it:9d} {logger.func_count:8d} {elbo:14.2f} "
@@ -795,76 +827,77 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
                   f"{state.R:12.3g}     {', '.join(notes)}")
 
     # ---------------------------------------------------------- finalize run
-    t_final = time.monotonic()
-    idx_best = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
-                                 frac_back=opt.best_frac_back,
-                                 rank_criterion=opt.rank_criterion)
-    vp_best = stats.iterations[idx_best].vp
-    elbo = stats.iterations[idx_best].elbo
-    elbo_sd = stats.iterations[idx_best].elbo_sd
+    with tracing.span("final_boost"):
+        idx_best = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
+                                     frac_back=opt.best_frac_back,
+                                     rank_criterion=opt.rank_criterion)
+        vp_best = stats.iterations[idx_best].vp
+        elbo = stats.iterations[idx_best].elbo
+        elbo_sd = stats.iterations[idx_best].elbo_sd
 
-    # Final boost to MinFinalComponents (`misc/finalboost_vbmc.m`), with the
-    # GP of the best iteration (`finalboost_vbmc.m:36`).
-    vp_train = vp_best
-    K_best = int(to_np(vp_best.kmask).sum())
-    K_boost = max(opt.min_final_components, K_best)
-    if K_best < K_boost:
-        n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_boost)
-                               * opt.ns_elbo_incr))
-        gp_best = stats.iterations[idx_best].gp or gp
-        res_boost = vpoptimize(
-            gen, cfg, vp_best, gp_best, K_boost, opt, warmup=False,
-            entropy_switch=state.entropy_switch, n_fast_opts=n_fast,
-            n_slow_opts=1, n_ent=opt.evalopt("ns_ent_boost", K_boost),
-            n_ent_fine=opt.evalopt("ns_ent_fine_boost", K_boost),
-            n_ent_fast=opt.evalopt("ns_ent_fast_boost", K_boost),
-            prune=False, host_seed=int(rng.integers(2 ** 31 - 1)))
-        vp_fit = res_boost.vp
-        elbo, elbo_sd = res_boost.elbo, res_boost.elbo_sd
-    else:
-        vp_fit = vp_best
-    vp = vp_fit
-    if opt.temperature > 1:
-        # Into real space once: the boost's ELBO is the tempered
-        # posterior's, a stored one is the real posterior's already.
-        vp, elbo_real, sd_real = vp_train2real(vp_fit, opt.temperature,
-                                               elbo, elbo_sd)
+        # Final boost to MinFinalComponents (`misc/finalboost_vbmc.m`), with
+        # the GP of the best iteration (`finalboost_vbmc.m:36`).
+        vp_train = vp_best
+        K_best = int(to_np(vp_best.kmask).sum())
+        K_boost = max(opt.min_final_components, K_best)
         if K_best < K_boost:
-            elbo, elbo_sd = elbo_real, sd_real
+            n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_boost)
+                                   * opt.ns_elbo_incr))
+            gp_best = stats.iterations[idx_best].gp or gp
+            res_boost = vpoptimize(
+                gen, cfg, vp_best, gp_best, K_boost, opt, warmup=False,
+                entropy_switch=state.entropy_switch, n_fast_opts=n_fast,
+                n_slow_opts=1, n_ent=opt.evalopt("ns_ent_boost", K_boost),
+                n_ent_fine=opt.evalopt("ns_ent_fine_boost", K_boost),
+                n_ent_fast=opt.evalopt("ns_ent_fast_boost", K_boost),
+                prune=False, host_seed=int(rng.integers(2 ** 31 - 1)))
+            vp_fit = res_boost.vp
+            elbo, elbo_sd = res_boost.elbo, res_boost.elbo_sd
+        else:
+            vp_fit = vp_best
+        vp = vp_fit
+        if opt.temperature > 1:
+            # Into real space once: the boost's ELBO is the tempered
+            # posterior's, a stored one is the real posterior's already.
+            vp, elbo_real, sd_real = vp_train2real(vp_fit, opt.temperature,
+                                                   elbo, elbo_sd)
+            if K_best < K_boost:
+                elbo, elbo_sd = elbo_real, sd_real
 
-    stable = stats.iterations[idx_best].stable
-    convergence = "probable" if stable else "no"
-    if exitflag == 0 and not stable:
-        msg = msg or ("Inference terminated without reaching stability; "
-                      "examine the run diagnostics.")
-    if opt.display in ("iter", "final"):
-        print(msg)
-        print(f"Estimated ELBO: {float(elbo):.3f} +/- {float(elbo_sd):.3f} "
-              f"[{convergence} convergence, {logger.func_count} fcn evals]")
+        stable = stats.iterations[idx_best].stable
+        convergence = "probable" if stable else "no"
+        if exitflag == 0 and not stable:
+            msg = msg or ("Inference terminated without reaching stability; "
+                          "examine the run diagnostics.")
+        if opt.display in ("iter", "final"):
+            print(msg)
+            print(f"Estimated ELBO: {float(elbo):.3f} +/- "
+                  f"{float(elbo_sd):.3f} [{convergence} convergence, "
+                  f"{logger.func_count} fcn evals]")
 
-    # Automatic retry from the best posterior (`vbmc.m:968-1009`), on the
-    # same device and dtype, warm-started from the training-space VP. Unlike
-    # the reference (`vbmc_tpu/main.py:908-917`) no `except` keeps the first
-    # result when the second run fails: a failure there raises (ROADMAP
-    # Queue 3 u). Both ELBOs it compares are the real posterior's; the
-    # reference converts a tempered run's ELBO after the retry, and twice
-    # when no boost ran (ROADMAP Queue 3 aa).
-    if exitflag < 1 and opt.retry_max_fun_evals > 0:
-        if display:
-            print("Attempting a second inference run from the current "
-                  "posterior.")
-        retry_user = dataclasses.replace(
-            options, max_fun_evals=opt.retry_max_fun_evals,
-            retry_max_fun_evals=0, seed=opt.seed + 1)
-        res2 = vbmc(fun, vp_fit, lb, ub, None, None, options=retry_user,
-                    device=device, dtype=dtype)
-        if res2.exitflag >= 1 or (res2.elbo - opt.best_safe_sd
-                                  * res2.elbo_sd) > (elbo - opt.best_safe_sd
-                                                     * elbo_sd):
-            res2.timers["first_run"] = time.monotonic() - t0
-            return res2
+        # Automatic retry from the best posterior (`vbmc.m:968-1009`), on
+        # the same device and dtype, warm-started from the training-space VP.
+        # Unlike the reference (`vbmc_tpu/main.py:908-917`) no `except` keeps
+        # the first result when the second run fails: a failure there raises
+        # (ROADMAP Queue 3 u). Both ELBOs it compares are the real
+        # posterior's; the reference converts a tempered run's ELBO after the
+        # retry, and twice when no boost ran (ROADMAP Queue 3 aa).
+        if exitflag < 1 and opt.retry_max_fun_evals > 0:
+            if display:
+                print("Attempting a second inference run from the current "
+                      "posterior.")
+            retry_user = dataclasses.replace(
+                options, max_fun_evals=opt.retry_max_fun_evals,
+                retry_max_fun_evals=0, seed=opt.seed + 1)
+            res2 = vbmc(fun, vp_fit, lb, ub, None, None, options=retry_user,
+                        device=device, dtype=dtype)
+            if res2.exitflag >= 1 or (
+                    res2.elbo - opt.best_safe_sd * res2.elbo_sd
+                    > elbo - opt.best_safe_sd * elbo_sd):
+                res2.timers["first_run"] = time.monotonic() - t0
+                return res2
 
-    timers["final_boost"] = time.monotonic() - t_final
+    timers = _with_phases(tracer.totals())
     timers["total"] = time.monotonic() - t0
     overhead = (timers["total"] / logger.total_fun_eval_time - 1.0
                 if logger.total_fun_eval_time > 0 else float("inf"))
@@ -875,7 +908,7 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
         iterations=len(stats), convergence_status=convergence,
         idx_best=idx_best, timers=timers, overhead=overhead,
         warps_made=warps["made"], warps_undone=warps["undone"],
-        quick_updates=quick_updates)
+        quick_updates=quick_updates, spans=tracer.log)
 
 
 def vbmc_sweep(fun, x0=None, lb=None, ub=None, plb=None, pub=None,

@@ -20,6 +20,7 @@ from vbmc_tpu_torch.vp import (VariationalPosterior, vp_from_np,
 from vbmc_tpu_torch.gp.predict import gp_predict
 from vbmc_tpu_torch.optim import minimize_lbfgs_bounded, fminadam, \
     value_and_grad
+from vbmc_tpu_torch.tracing import span
 from vbmc_tpu_torch.utils.math import bucket_k, bucket_pow2, to_np
 
 # Bound on B*S*K*N elements of one sieve chunk (the (B, S, K, N) quadrature
@@ -296,31 +297,32 @@ def vpoptimize(gen: torch.Generator, cfg: GPConfig, vp: VariationalPosterior,
         return torch.as_tensor(np.asarray(a, np.float64), device=dev, dtype=dt)
 
     if n_fast_opts > 0:
-        n3 = int(math.ceil(n_fast_opts / 3))
-        cand, types = [], []
-        if n_slow_opts == 1:
-            cand.append(vbinit(rng, 1, n_fast_opts, vp, K_new, k_max, X_hpd,
-                               y_hpd, opt_weights))
-            types.append(np.ones(n_fast_opts, dtype=int))
-        else:
-            for ty, n_t in ((1, n3), (2, n3), (3, n_fast_opts - 2 * n3)):
-                if n_t <= 0:
-                    continue
-                cand.append(vbinit(rng, ty, n_t, vp, K_new, k_max, X_hpd,
-                                   y_hpd, opt_weights))
-                types.append(np.full(n_t, ty, dtype=int))
-        mu_c, sg_c, lam_c, w_c = (np.concatenate([c[i] for c in cand])
-                                  for i in range(4))
-        types = np.concatenate(types)
-        thetas_np = _thetas_np(flags, mu_c, sg_c, lam_c, w_c, kmask_np)
-        tmpl = VPTemplate(t(mu_c[0]), t(sg_c[0]), t(lam_c[0]), t(w_c[0]),
-                          kmask)
-        nelcbo = to_np(_sieve(cfg, t(thetas_np), gp, tmpl, flags, ns_fast_k,
-                              gen, bnd))
-        order = np.argsort(np.where(np.isfinite(nelcbo), nelcbo, np.inf),
-                           kind="stable")
-        thetas_np = thetas_np[order]
-        types = types[order]
+        with span("sieve"):
+            n3 = int(math.ceil(n_fast_opts / 3))
+            cand, types = [], []
+            if n_slow_opts == 1:
+                cand.append(vbinit(rng, 1, n_fast_opts, vp, K_new, k_max,
+                                   X_hpd, y_hpd, opt_weights))
+                types.append(np.ones(n_fast_opts, dtype=int))
+            else:
+                for ty, n_t in ((1, n3), (2, n3), (3, n_fast_opts - 2 * n3)):
+                    if n_t <= 0:
+                        continue
+                    cand.append(vbinit(rng, ty, n_t, vp, K_new, k_max, X_hpd,
+                                       y_hpd, opt_weights))
+                    types.append(np.full(n_t, ty, dtype=int))
+            mu_c, sg_c, lam_c, w_c = (np.concatenate([c[i] for c in cand])
+                                      for i in range(4))
+            types = np.concatenate(types)
+            thetas_np = _thetas_np(flags, mu_c, sg_c, lam_c, w_c, kmask_np)
+            tmpl = VPTemplate(t(mu_c[0]), t(sg_c[0]), t(lam_c[0]), t(w_c[0]),
+                              kmask)
+            nelcbo = to_np(_sieve(cfg, t(thetas_np), gp, tmpl, flags,
+                                  ns_fast_k, gen, bnd))
+            order = np.argsort(np.where(np.isfinite(nelcbo), nelcbo, np.inf),
+                               kind="stable")
+            thetas_np = thetas_np[order]
+            types = types[order]
     else:
         mu_p = np.zeros((k_max, D))
         sg_p = np.ones(k_max)
@@ -353,26 +355,27 @@ def vpoptimize(gen: torch.Generator, cfg: GPConfig, vp: VariationalPosterior,
                 return thetas_np[j]
         return thetas_np[0]
 
-    elcbo_beta = options.elcbo_weight
-    n_opts = max(n_slow_opts, 1)
-    theta0s = t(np.stack([pick_start(i) for i in range(n_opts)]))
-    if ns_ent_k == 0:
-        sts, mids = _lbfgs_eval_batch(cfg, flags, theta0s, gp, tmpl,
-                                      elcbo_beta, bnd, gen,
-                                      options.lbfgs_iters, ns_fine_k)
-    else:
-        step_min = min(options.sgd_step_size, 0.001)
-        if warmup or not opt_weights:
-            step_max = min(0.1, options.sgd_step_size * 10)
+    with span("optimize"):
+        elcbo_beta = options.elcbo_weight
+        n_opts = max(n_slow_opts, 1)
+        theta0s = t(np.stack([pick_start(i) for i in range(n_opts)]))
+        if ns_ent_k == 0:
+            sts, mids = _lbfgs_eval_batch(cfg, flags, theta0s, gp, tmpl,
+                                          elcbo_beta, bnd, gen,
+                                          options.lbfgs_iters, ns_fine_k)
         else:
-            step_max = min(0.1, options.sgd_step_size)
-        step_max = max(step_min, step_max)
-        sts, mids = _adam_eval_batch(
-            cfg, flags, theta0s, gp, tmpl, elcbo_beta, bnd, gen, ns_ent_k,
-            int(min(options.max_iter_stochastic, 10000)), step_min, step_max,
-            options.tol_fun_stochastic, bool(options.elcbo_midpoint),
-            ns_fine_k)
-    sts = {k: to_np(v) for k, v in sts.items()}
+            step_min = min(options.sgd_step_size, 0.001)
+            if warmup or not opt_weights:
+                step_max = min(0.1, options.sgd_step_size * 10)
+            else:
+                step_max = min(0.1, options.sgd_step_size)
+            step_max = max(step_min, step_max)
+            sts, mids = _adam_eval_batch(
+                cfg, flags, theta0s, gp, tmpl, elcbo_beta, bnd, gen, ns_ent_k,
+                int(min(options.max_iter_stochastic, 10000)), step_min,
+                step_max, options.tol_fun_stochastic,
+                bool(options.elcbo_midpoint), ns_fine_k)
+        sts = {k: to_np(v) for k, v in sts.items()}
 
     nelcbo_vals = [-float(sts["elbo"][j]) + elcbo_beta * math.sqrt(
         max(float(sts["varF"][j]), 0.0)) for j in range(mids.shape[0])]
@@ -385,36 +388,38 @@ def vpoptimize(gen: torch.Generator, cfg: GPConfig, vp: VariationalPosterior,
     pruned = 0
     kmask_np = kmask_np.copy()
     if prune and opt_weights:
-        pruning_threshold = options.tol_improvement * options.evalopt(
-            "pruning_threshold_multiplier", K_new)
-        checked = np.zeros(k_max, dtype=bool)
-        P = 8
-        while True:
-            small = np.where((w_cur < options.tol_weight) & kmask_np
-                             & ~checked)[0]
-            if small.size == 0 or kmask_np.sum() <= 1:
-                break
-            cands = small[:P]
-            sts_p = _prune_eval_batch(
-                cfg, gp, t(st_cur["mu"]), t(st_cur["sigma"]),
-                t(st_cur["lam"]), t(w_cur),
-                torch.as_tensor(kmask_np, device=dev), list(cands), flags,
-                ns_fine_k, gen)
-            sts_p = {k: to_np(v) for k, v in sts_p.items()}
-            sds_p = np.sqrt(np.maximum(sts_p["varF"], 0.0))
-            d_elcbo = np.abs(
-                (sts_p["elbo"] - options.elcbo_impro_weight * sds_p)
-                - (elbo_cur - options.elcbo_impro_weight * elbo_sd_cur))
-            ok = d_elcbo < pruning_threshold
-            if not ok.any():
-                checked[cands] = True
-                continue
-            j = int(np.argmin(np.where(ok, d_elcbo, np.inf)))
-            kmask_np[int(cands[j])] = False
-            st_cur = {k: v[j] for k, v in sts_p.items()}
-            w_cur = st_cur["w"]
-            elbo_cur, elbo_sd_cur = float(sts_p["elbo"][j]), float(sds_p[j])
-            pruned += 1
+        with span("prune"):
+            pruning_threshold = options.tol_improvement * options.evalopt(
+                "pruning_threshold_multiplier", K_new)
+            checked = np.zeros(k_max, dtype=bool)
+            P = 8
+            while True:
+                small = np.where((w_cur < options.tol_weight) & kmask_np
+                                 & ~checked)[0]
+                if small.size == 0 or kmask_np.sum() <= 1:
+                    break
+                cands = small[:P]
+                sts_p = _prune_eval_batch(
+                    cfg, gp, t(st_cur["mu"]), t(st_cur["sigma"]),
+                    t(st_cur["lam"]), t(w_cur),
+                    torch.as_tensor(kmask_np, device=dev), list(cands), flags,
+                    ns_fine_k, gen)
+                sts_p = {k: to_np(v) for k, v in sts_p.items()}
+                sds_p = np.sqrt(np.maximum(sts_p["varF"], 0.0))
+                d_elcbo = np.abs(
+                    (sts_p["elbo"] - options.elcbo_impro_weight * sds_p)
+                    - (elbo_cur - options.elcbo_impro_weight * elbo_sd_cur))
+                ok = d_elcbo < pruning_threshold
+                if not ok.any():
+                    checked[cands] = True
+                    continue
+                j = int(np.argmin(np.where(ok, d_elcbo, np.inf)))
+                kmask_np[int(cands[j])] = False
+                st_cur = {k: v[j] for k, v in sts_p.items()}
+                w_cur = st_cur["w"]
+                elbo_cur = float(sts_p["elbo"][j])
+                elbo_sd_cur = float(sds_p[j])
+                pruned += 1
 
     wk = w_cur * kmask_np
     vp_new = vp_from_np(
