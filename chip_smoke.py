@@ -9,9 +9,10 @@ Phases, each printing what it found; any failure exits non-zero:
 
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi). Exits 2 without CUDA: there is no CPU fallback.
-2. Build: compile both kernel sources (`vbmc_tpu_torch/csrc/*.cu`) with
-   nvcc, one process each, started together; the float64 products must
-   show as DMMA (FP64 tensor-core) opcodes in `cuobjdump -sass`.
+2. Build: compile every kernel source (`vbmc_tpu_torch/csrc/*.cu`) with
+   nvcc, one process each, started together; the float64 products of the
+   two sweep kernels must show as DMMA (FP64 tensor-core) opcodes in
+   `cuobjdump -sass`.
 3. Each kernel against its plain PyTorch version on the card, float64 and
    float32, with CUDA-event times of both:
    - `prospective_acq` at N=256 S=16 K=16 M=8192 D=6 and N=1024 S=80 K=64
@@ -41,6 +42,11 @@ Phases, each printing what it found; any failure exits non-zero:
    counted over the whole tiles it evaluates (masked training rows and the
    candidates a ragged M rounds up to included), and, in the log lines
    only, the time of the design before this one at the same shape.
+   Then `sym_eig`, CMA-ES's eigensolver, at D = 1, 2, 3, 6, 10, 32, 64 and
+   128 in float64 and float32 on seeded SPD matrices (eigenvalues 1e-3 to
+   1e3) against the float64 `torch.linalg.eigh`: eigenvalues,
+   reconstruction and orthogonality (`SYM_EIG_TOL`), and the CUDA-event
+   time of both at D=2 and D=10.
 4. The stress configuration, `stress_d10`, starts in a child process
    (`stress_child`, one host thread) and runs beside phases 5 to 7: the
    D=10 / K=50 configuration of `tests/test_stress.py:14-26` (the
@@ -73,9 +79,12 @@ Phases, each printing what it found; any failure exits non-zero:
    Then `cigar3_families`: the cigar with `gp_mean_fun="negquadse"`,
    `fitness_shaping=True` and `search_acq_fcn=("prospective_log",)`, 60
    evaluations, held to the same gate: the sweep's dispatch must have
-   chosen the plain evaluation, so both kernels must count 0 launches, and
-   the run must make at least one rotoscale warp (`warp_gp_and_vp` on the
-   negquadse-mean, output-warped GP, retraining and the undo check).
+   chosen the plain evaluation, so both kernels must count 0 launches.
+   Then `cigar3_families_warp`, the same at 100 evaluations and held to
+   the same gate, must make at least one rotoscale warp (`warp_gp_and_vp`
+   on the negquadse-mean, output-warped GP, retraining and the undo
+   check): a warp falls due six iterations after warm-up ends, which at
+   60 evaluations (11 iterations) only some seeds reach.
 6. The noisy path: the same call with `specify_target_noise=True` on the
    2-D half-normal with sigma=1 additive noise (the target returns its
    value and SD 1; 80 evaluations), held to the same gate; `viqr_acq` must
@@ -109,8 +118,11 @@ Phases, each printing what it found; any failure exits non-zero:
    In this process, after `halfnorm2_noisy_repeat`: `mvn2_retry` (20
    evaluations end without stability, and the retry from the best
    posterior, a warm start from a VP, takes 30 more; the check fails
-   unless the target saw more than 20 calls and the retry's own result,
-   the one the gate holds, is the one returned).
+   unless the target saw more than 20 calls, the retry's own result
+   passes the gate as the returned one does, and the returned run is the
+   one `vbmc`'s rule picks: the retry where it won, and where the first
+   run is returned, a retry that is neither stable nor better by its
+   safe ELBO; which of the two close runs wins is the random stream's).
 8. Once every other process is gathered, the timed comparisons at the
    runs' last GPs: `prospective_acq` against its plain version at the
    shapes of the 6-D run's last GP and VP; the posterior and GP queries
@@ -129,8 +141,13 @@ Phases, each printing what it found; any failure exits non-zero:
    plus 1e-6 of the largest value where the GP's variance cancels, same
    argmin), with the CUDA-event time of each. The same two checks at
    example 6's last GP and VP (D=3, its own N and S rungs; `(e6)` in
-   PERF.md). Last, `prospective_acq` at the shapes of the stress run's
-   last GP and VP.
+   PERF.md), and there CMA-ES on "viqr" through the importance-sampling
+   set as active sampling runs it on the card (generation 0 eager, one
+   CUDA graph replayed for the rest) against the same generations run
+   eagerly, from one seed: x_best, f_best and x_mean bit for bit, with the
+   device time of one replayed generation. Last, `prospective_acq` at the
+   shapes of the stress run's last GP and VP, and the same CMA-ES check
+   on "prospective" there (D=10, 375 generations).
 9. The microbenchmark `python -m vbmc_tpu_torch.bench_kernels` (the twin
    of `bench_kernels.py`), in this process at its default shape (N=256
    S=16 K=16 M=8192 D=6) with a 50 ms pipelined window, its rows logged
@@ -140,10 +157,13 @@ Phases, each printing what it found; any failure exits non-zero:
    launches are not the main path's and are not counted in the line
    below).
 10. A JSON line with every kernel's numbers (the headline ones at the
-   stress run's last GP for `prospective_acq` and at the noisy run's for
-   `viqr_acq`; launches summed over every run of this process and of the
-   three child processes, example 6's included; the sweep's workers are
-   not counted), then the last line {"ok": true, "device": {...}}.
+   stress run's last GP for `prospective_acq`, at the noisy run's for
+   `viqr_acq` and at D=10 float64 for `sym_eig`, whose bound is one
+   Jacobi sweep on one SM; launches summed over every run of this process
+   and of the three child processes, example 6's included; the sweep's
+   workers are not counted; `sym_eig`'s are counted at each replay of the
+   CMA-ES graph that recorded it), then the last line {"ok": true,
+   "device": {...}}.
 
 The launch counts of a path are set to 0 just before it runs and read just
 after; the comparisons' own launches do not count. No kernel or query is
@@ -178,6 +198,9 @@ NA_DEFAULT = 3 * 66 + 100   # IS set size at the default option values
 # The card's peaks (NVIDIA's H100 SXM data sheet): FP64 on the tensor cores,
 # and device memory.
 PEAK_FP64_TC = 67e12
+# One SM's FP64 FMA rate (34 TFLOP/s over 132 SMs): `sym_eig` runs on one
+# CTA and no tensor core.
+PEAK_FP64_SM = 34e12 / 132
 PEAK_BYTES = 3.35e12
 # Float64 kernel ms of the design before this one (FP64 FMA micro-tile, ks
 # recomputed per 64-row tile, single-buffered loads), H100 80GB HBM3 at
@@ -587,6 +610,7 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
     torch.cuda.reset_peak_memory_stats()
     for k in (kernels.prospective_acq, kernels.viqr_acq):
         k.launches = k.launches_f32 = 0
+    eig0 = kernels.sym_eig.launches
     t = time.monotonic()
     res = vbmc(logp, x0=x0, lb=lb, ub=ub, plb=plb, pub=pub, options=options,
                device="cuda", dtype=dtype)
@@ -614,6 +638,7 @@ def run_target(torch, kernels, kernel, name, logp, D, x0, lnz, mean_true,
         f"{note(res) + ' ' if note else ''}"
         f"peak_device_MiB {peak_mib:.1f} "
         f"{'float32_' if f32 else ''}kernel_launches {launches} "
+        f"sym_eig_launches {kernels.sym_eig.launches - eig0} "
         f"acquired_points {acquired} repeated_observations {repeats} "
         f"quick_updates {res.quick_updates} "
         f"warps_made {res.warps_made} (at least {min_warps}) warps_undone "
@@ -641,6 +666,207 @@ def _candidates(torch, gp, vp, D):
         Xs, _ = _gen_candidates(gen, vp, gp, lbig, -lbig, 8192, 2048, 2048,
                                 2048)
     return Xs
+
+
+# `sym_eig` against torch.linalg.eigh: every width of VBMC's range and the
+# kernel's ceiling; the errors relative to max |C| (eigenvalues and the
+# reconstruction) or absolute (B^T B - I).
+SYM_EIG_DS = (1, 2, 3, 6, 10, 32, 64, 128)
+SYM_EIG_TOL = {"float64": 1e-12, "float32": 1e-4}
+
+
+def _spd(torch, D, seed, dtype):
+    """A seeded symmetric positive definite matrix with eigenvalues from
+    1e-3 to 1e3, the spread CMA-ES's covariance reaches on an
+    ill-conditioned acquisition."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((D, D)))
+    C = Q @ np.diag(np.logspace(-3, 3, D)) @ Q.T
+    return torch.as_tensor(0.5 * (C + C.T), dtype=dtype, device="cuda")
+
+
+def phase_sym_eig(torch, kernels):
+    """`sym_eig` at every D of SYM_EIG_DS, float64 and float32, against
+    the float64 `torch.linalg.eigh` of the same matrix: the sorted
+    eigenvalues, B diag(L) B^T against C, and B^T B against I, within
+    SYM_EIG_TOL; the CUDA-event time of both at D=2 and D=10, against a
+    bound: one Jacobi sweep (6 D^3 flops, the least a solve does) at one
+    SM's FP64 rate, or the bytes of A, w and V at the card's, the larger.
+    Returns the numbers of each case, as `compare` does."""
+    out = []
+    for D in SYM_EIG_DS:
+        for dt in (torch.float64, torch.float32):
+            C = _spd(torch, D, D, dt)
+            L, B = kernels.sym_eig(C)
+            C64, L64, B64 = C.double(), L.double(), B.double()
+            scale = float(C64.abs().max())
+            ev = float((torch.sort(L64).values
+                        - torch.linalg.eigvalsh(C64)).abs().max()) / scale
+            rec = float((B64 @ torch.diag(L64) @ B64.T - C64).abs().max()) \
+                / scale
+            orth = float((B64.T @ B64 - torch.eye(
+                D, dtype=torch.float64, device="cuda")).abs().max())
+            tol = SYM_EIG_TOL[str(dt).split(".")[-1]]
+            ok = max(ev, rec, orth) < tol
+            times = ""
+            ms = ms_eigh = bound_ms = bound_by = None
+            if D in (2, 10):
+                ms = cuda_time_ms(torch, lambda: kernels.sym_eig(C),
+                                  repeats=7, inner=20)
+                ms_eigh = cuda_time_ms(torch, lambda: torch.linalg.eigh(C),
+                                       repeats=7, inner=20)
+                bound_ops = 6 * D ** 3 / PEAK_FP64_SM * 1e3
+                bound_bytes = (2 * D * D + D) * C.element_size() \
+                    / PEAK_BYTES * 1e3
+                bound_ms = max(bound_ops, bound_bytes)
+                bound_by = "operations" if bound_ops >= bound_bytes \
+                    else "bytes"
+                times = (f"; sym_eig {ms * 1e3:.1f} us, torch.linalg.eigh "
+                         f"{ms_eigh * 1e3:.1f} us (CUDA events), bound "
+                         f"{bound_ms * 1e3:.4f} us by {bound_by}")
+            out.append(dict(tag=f"D={D} {str(dt).split('.')[-1]}",
+                            max_abs_err=max(ev, rec, orth), ms=ms,
+                            plain_ms=ms_eigh, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None,
+                            exp_evals=None))
+            log(f"[sym_eig] D={D} {str(dt).split('.')[-1]}: eigenvalues "
+                f"{ev:.2e}, reconstruction {rec:.2e} (of max|C| {scale:.4g}), "
+                f"B^T B - I {orth:.2e}, tolerance {tol}{times}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"sym_eig D={D} {dt}: off eigh")
+    return out
+
+
+def compare_cmaes_capture(torch, name, f_batch, x0, insigma, lb, ub,
+                          max_evals):
+    """CMA-ES as the program runs it on the card (`start`, `finish`:
+    generation 0 eager, one graph replayed n_gen - 1 times) against the
+    same generation function run n_gen times eagerly on the card, from one
+    generator seed (the same normals) on the same objective: x_best, f_best
+    and x_mean must agree bit for bit, and n_evals be n_gen times 16. Logs
+    the device time of one replayed generation (CUDA events over the
+    replays), `start`'s host time and an eager generation's."""
+    from vbmc_tpu_torch.samplers.cmaes import CMAES
+
+    def make():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        return CMAES(gen, f_batch, x0, insigma, lb, ub, max_evals,
+                     popsize=16)
+
+    with torch.no_grad():
+        eager = make()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for _ in range(eager.n_gen):
+            eager.generation()
+        want = eager.result()
+        torch.cuda.synchronize()
+        eager_s = time.monotonic() - t
+        es = make()
+        t = time.monotonic()
+        es.start()
+        torch.cuda.synchronize()
+        start_s = time.monotonic() - t
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = es.finish()
+        b.record()
+        torch.cuda.synchronize()
+        replay_ms = a.elapsed_time(b) / (es.n_gen - 1)
+    same = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+            for f in ("x_best", "f_best", "x_mean")}
+    ok = all(same.values()) and got.n_evals == es.n_gen * 16 == want.n_evals
+    log(f"[cmaes] {name} D={x0.shape[0]}: {es.n_gen} generations of 16; "
+        f"graph against eager bit for bit {same}, f_best "
+        f"{float(got.f_best):.6g}; one replayed generation "
+        f"{replay_ms * 1e3:.1f} us of device time, an eager one "
+        f"{eager_s / eager.n_gen * 1e3:.2f} ms of wall, start (generation "
+        f"0, capture, instantiation) {start_s * 1e3:.1f} ms: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the captured CMA-ES is not the eager "
+                             "one")
+    return replay_ms
+
+
+def _refine_inputs(torch, cfg, gp, vp, Xs, f_batch):
+    """What active sampling hands CMA-ES: the winner of ``f_batch`` over
+    the candidates, the VP's per-dimension scales and the candidates' box
+    (`active_sample._argmin_and_refine`)."""
+    from vbmc_tpu_torch.vp import vp_moments
+
+    with torch.no_grad():
+        acq = f_batch(Xs)
+        x0 = Xs[int(torch.argmin(torch.where(torch.isfinite(acq), acq,
+                                             torch.inf)))]
+        _, cov = vp_moments(vp, orig_flag=False)
+        insigma = torch.sqrt(torch.diagonal(cov).clamp_min(1e-12))
+    big = torch.full_like(x0, 1e3)
+    return x0, insigma, torch.minimum(x0, -big), torch.maximum(x0, big)
+
+
+def compare_cmaes_prospective(torch, name, last, D):
+    """`compare_cmaes_capture` on "prospective" at a noiseless run's last
+    GP and VP, ``last`` = (gp, vp, ymax), with the default budget at D."""
+    from vbmc_tpu_torch import VBMCOptions
+    from vbmc_tpu_torch.acquisitions import AcqState, evaluate_acquisition
+    from vbmc_tpu_torch.gp.config import GPConfig
+
+    gp, vp, ymax = last
+    cfg = GPConfig(D=D)
+    inf = torch.full((D,), np.inf, device="cuda", dtype=torch.float64)
+    opt = VBMCOptions().resolve(D)
+    state = AcqState(ymax=torch.tensor(float(ymax), device="cuda",
+                                       dtype=torch.float64),
+                     tol_var=torch.tensor(opt.tol_gp_var, device="cuda",
+                                          dtype=torch.float64),
+                     lb_eps_orig=-inf, ub_eps_orig=inf)
+
+    def f_batch(xs):
+        return evaluate_acquisition(cfg, "prospective", xs, vp, gp, state)
+
+    Xs = _candidates(torch, gp, vp, D)
+    return compare_cmaes_capture(torch, name, f_batch,
+                                 *_refine_inputs(torch, cfg, gp, vp, Xs,
+                                                 f_batch),
+                                 opt.search_max_fun_evals)
+
+
+def compare_cmaes_viqr(torch, last):
+    """`compare_cmaes_capture` on "viqr" at example 6's last GP and VP,
+    ``last`` = (gp, vp, meta), through its importance-sampling set, with
+    the default budget of a noisy target at D=3."""
+    from vbmc_tpu_torch import VBMCOptions
+    from vbmc_tpu_torch.acquisitions import AcqState
+    from vbmc_tpu_torch.active_is import evaluate_is_acquisition
+    from vbmc_tpu_torch.gp.config import GPConfig
+
+    gp, vp, meta = last
+    D = vp.D
+    cfg = GPConfig(D=D, user_noise=1)
+    opt = VBMCOptions(specify_target_noise=True).resolve(D)
+    Xs = _candidates(torch, gp, vp, D)
+    ais, _ = viqr_inputs(torch, cfg, gp, vp, Xs, seed=2)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device="cuda")
+
+    hm = gp.hyp_mask.to(gp.hyp.dtype)
+    state = AcqState(
+        ymax=t(meta["ymax"]), tol_var=t(opt.tol_gp_var),
+        lb_eps_orig=t(meta["lb_eps"]), ub_eps_orig=t(meta["ub_eps"]),
+        gp_length_scale=torch.exp((gp.hyp[:, :D] * hm[:, None]).sum(0)
+                                  / hm.sum()))
+
+    def f_batch(xs):
+        return evaluate_is_acquisition(cfg, "viqr", xs, vp, gp, state, ais)
+
+    return compare_cmaes_capture(torch, "example_6_noisy_ibs viqr", f_batch,
+                                 *_refine_inputs(torch, cfg, gp, vp, Xs,
+                                                 f_batch),
+                                 opt.search_max_fun_evals)
 
 
 def phase_noiseless(torch, kernels):
@@ -675,8 +901,8 @@ def phase_noiseless(torch, kernels):
     def logp_cigar(x):
         return float(-0.5 * x @ prec @ x + lognorm)
 
-    # rotoscale warping is on in both cigars (the default): this run makes
-    # no warp (nor did it at 60 evaluations), the next makes one at 60
+    # rotoscale warping is on in every cigar (the default): this run makes
+    # no warp
     _, l3, _, _ = run_target(
         torch, kernels, "prospective_acq", "cigar_3d", logp_cigar,
         D3, np.full(D3, 0.25), 0.0, np.zeros(D3),
@@ -685,15 +911,18 @@ def phase_noiseless(torch, kernels):
         plb=np.full(D3, -4.0), pub=np.full(D3, 4.0))
 
     # a mean family and an acquisition outside the kernel: the plain sweep;
-    # and the warp path on that GP
-    run_target(
-        torch, kernels, None, "cigar3_families", logp_cigar, D3,
-        np.full(D3, 0.25), 0.0, np.zeros(D3),
-        VBMCOptions(display="off", max_fun_evals=60, seed=3,
-                    min_final_components=20, gp_mean_fun="negquadse",
-                    fitness_shaping=True,
-                    search_acq_fcn=("prospective_log",)),
-        plb=np.full(D3, -4.0), pub=np.full(D3, 4.0), min_warps=1)
+    # then, in a run long enough for a warp to fall due, the warp path on
+    # that GP
+    for name, evals, warps in (("cigar3_families", 60, 0),
+                               ("cigar3_families_warp", 100, 1)):
+        run_target(
+            torch, kernels, None, name, logp_cigar, D3,
+            np.full(D3, 0.25), 0.0, np.zeros(D3),
+            VBMCOptions(display="off", max_fun_evals=evals, seed=3,
+                        min_final_components=20, gp_mean_fun="negquadse",
+                        fitness_shaping=True,
+                        search_acq_fcn=("prospective_log",)),
+            plb=np.full(D3, -4.0), pub=np.full(D3, 4.0), min_warps=warps)
     return l6 + l3, res6
 
 
@@ -996,7 +1225,8 @@ def surface_child(workdir):
         note=lambda res: f"dtype {res.vp.mu.dtype} all_launches "
                          f"{kernels.prospective_acq.launches}")
     _write_launches(workdir, "surface_child",
-                    {"prospective_acq": l_t + l_r + l_f, "viqr_acq": 0})
+                    {"prospective_acq": l_t + l_r + l_f, "viqr_acq": 0,
+                     "sym_eig": kernels.sym_eig.launches})
     return 0
 
 
@@ -1075,7 +1305,7 @@ def stress_child(workdir):
                           "L", "Binv", "sn2")})
     _write_launches(workdir, "stress_child",
                     {"prospective_acq": launches, "viqr_acq": 0,
-                     "seconds": secs, "peak_device_MiB": peak,
+                     "sym_eig": kernels.sym_eig.launches, "seconds": secs, "peak_device_MiB": peak,
                      "iterations": res.iterations, "rungs": rungs(res)})
     return 0
 
@@ -1185,25 +1415,63 @@ def phase_surface(torch, kernels, alongside):
     resume of its checkpoint through pre-evaluated values and float32 run,
     and the run sweep in two worker processes with its diagnostics.
     Returns `prospective_acq`'s launches in the retry and the child."""
+    import vbmc_tpu_torch.main as vmain
     from vbmc_tpu_torch import VBMCOptions
 
     D, lnz, mu = Mvn2.D, Mvn2.LNZ, Mvn2.MU
     start = VBMCOptions().resolve(D).fun_eval_start
 
     f = Mvn2()
-    _, launches, _, _ = run_target(
-        torch, kernels, "prospective_acq", "mvn2_retry", f, D, np.zeros(D),
-        lnz, mu, _mvn2_opts(max_fun_evals=RETRY_EVALS,
-                            retry_max_fun_evals=RETRY_SECOND), **MVN2_BOX,
-        # each run's initial design of `start` points is not acquired
-        acquired=lambda res: len(f.calls) - 2 * start,
-        # the retry ran, and its result is the one returned and gated
-        require=lambda res: (len(f.calls) > RETRY_EVALS
-                             and "first_run" in res.timers),
-        note=lambda res: f"target_calls {len(f.calls)} retry_ran "
-                         f"{len(f.calls) > RETRY_EVALS} returned the "
-                         f"{'second' if 'first_run' in res.timers else 'first'}"
-                         f" run")
+    safe_sd = VBMCOptions().resolve(D).best_safe_sd
+    # every result `vbmc` returns, the retry's (its inner call) first
+    results = []
+    real_vbmc = vmain.vbmc
+
+    def recording_vbmc(*args, **kw):
+        results.append(real_vbmc(*args, **kw))
+        return results[-1]
+
+    def retry_gate(res):
+        """The retry's result and the rule's choice, beside the returned
+        run's gate: ((err, rmse) of the retry, whether the rule holds)."""
+        if len(results) != 2:
+            return (np.inf, np.inf), False
+        second = results[0]
+        if res is second:
+            rule = "first_run" in res.timers
+        else:
+            rule = "first_run" not in res.timers and not (
+                second.exitflag >= 1 or second.elbo - safe_sd
+                * second.elbo_sd > res.elbo - safe_sd * res.elbo_sd)
+        return gate(torch, second.vp, second.elbo, lnz, mu), rule
+
+    def retry_ok(res):
+        (err, rmse), rule = retry_gate(res)
+        return len(f.calls) > RETRY_EVALS and rule and err < 0.5 \
+            and rmse < 0.5
+
+    def retry_note(res):
+        (err, rmse), rule = retry_gate(res)
+        won = bool(results) and res is results[0]
+        return (f"target_calls {len(f.calls)} retry_ran "
+                f"{len(f.calls) > RETRY_EVALS} returned the "
+                f"{'second' if won else 'first'} run (the rule's choice "
+                f"{rule}); the retry's elbo {results[0].elbo:.4f} elbo_sd "
+                f"{results[0].elbo_sd:.4f} err {err:.4f} rmse {rmse:.4f}"
+                if results else "the retry did not run")
+
+    vmain.vbmc = recording_vbmc
+    try:
+        _, launches, _, _ = run_target(
+            torch, kernels, "prospective_acq", "mvn2_retry", f, D,
+            np.zeros(D), lnz, mu,
+            _mvn2_opts(max_fun_evals=RETRY_EVALS,
+                       retry_max_fun_evals=RETRY_SECOND), **MVN2_BOX,
+            # each run's initial design of `start` points is not acquired
+            acquired=lambda res: len(f.calls) - 2 * start,
+            require=retry_ok, note=retry_note)
+    finally:
+        vmain.vbmc = real_vbmc
 
     rc = alongside.child.wait(timeout=SURFACE_TIMEOUT)
     if rc != 0:
@@ -1431,12 +1699,13 @@ def phase_bench_kernels(torch):
 
 
 def check_dmma(libs):
-    """The float64 products of both libraries must have compiled to DMMA
-    (FP64 tensor-core) opcodes: count them in the SASS."""
+    """The float64 products of both sweep libraries must have compiled to
+    DMMA (FP64 tensor-core) opcodes: count them in the SASS."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name, lib in libs.items():
+    for name in ("prospective_acq", "viqr_acq"):
+        lib = libs[name]
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         dmma = [ln.strip() for ln in sass.splitlines() if "DMMA" in ln]
@@ -1638,7 +1907,7 @@ def example_child(workdir):
 
     kernels.prospective_acq.load()
     kernels.viqr_acq.load()
-    sweeps = (kernels.prospective_acq, kernels.viqr_acq)
+    sweeps = (kernels.prospective_acq, kernels.viqr_acq, kernels.sym_eig)
     torch.cuda.reset_peak_memory_stats()
     for k in sweeps:
         k.launches = k.launches_f32 = 0
@@ -1771,7 +2040,9 @@ def kernels_line(results, main_path, launches):
     """The JSON line of every kernel's numbers: the headline numbers are
     those at the main path's shape, `all` has every shape."""
     replaces = {"prospective_acq": "vbmc_tpu/pallas_kernels.py:157",
-                "viqr_acq": "vbmc_tpu/pallas_kernels.py:337"}
+                "viqr_acq": "vbmc_tpu/pallas_kernels.py:337",
+                "sym_eig": "no TPU kernel: jnp.linalg.eigh in "
+                           "vbmc_tpu/samplers/cmaes.py"}
     head = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "exp_evals")
     return json.dumps({"kernels": [{
@@ -1785,7 +2056,7 @@ def kernels_line(results, main_path, launches):
         **{k: main_path[name][k] for k in head},
         "timed_at": main_path[name]["tag"],
         "all": results[name] + [main_path[name]]}
-        for name in ("prospective_acq", "viqr_acq")]})
+        for name in ("prospective_acq", "viqr_acq", "sym_eig")]})
 
 
 def main():
@@ -1811,7 +2082,9 @@ def main():
     check_dmma(libs)
 
     results = phase_kernels(torch, kernels)
+    results["sym_eig"] = phase_sym_eig(torch, kernels)
     launches = {"prospective_acq": 0, "viqr_acq": 0}
+    kernels.sym_eig.launches = kernels.sym_eig.launches_f32 = 0
     # From here until the stress run is gathered other processes share the
     # card, so nothing is timed: the comparisons at the runs' last GPs and
     # the queries come after.
@@ -1828,6 +2101,9 @@ def main():
             out_e6, last_e6 = example.gather(torch)
             out, last_stress = stress.gather(torch)
         launches["prospective_acq"] += out["prospective_acq"]
+        launches["sym_eig"] = kernels.sym_eig.launches + out["sym_eig"] \
+            + out_e6["launches"]["sym_eig"] \
+            + _read_launches(alongside.workdir, "surface_child")["sym_eig"]
     log(f"[e2e] stress_d10 (in a child process): {out}")
     phase_examples(out_e6, example_truth(6))
     launches["viqr_acq"] += out_e6["launches"]["viqr_acq"]
@@ -1839,15 +2115,23 @@ def main():
     main_v = compare_halfnorm_noisy(torch, kernels, res_noisy)
     del res_noisy
     results["viqr_acq"].append(compare_example(torch, kernels, last_e6))
+    compare_cmaes_viqr(torch, last_e6)
     del last_e6
     main_p = compare_at_last_gp(torch, kernels, "stress_d10", last_stress,
                                 STRESS_D)
+    compare_cmaes_prospective(torch, "stress_d10 prospective", last_stress,
+                              STRESS_D)
     results["prospective_acq"].append(r6)
-    main_path = {"prospective_acq": main_p, "viqr_acq": main_v}
+    main_path = {"prospective_acq": main_p, "viqr_acq": main_v,
+                 "sym_eig": results["sym_eig"].pop(next(
+                     i for i, r in enumerate(results["sym_eig"])
+                     if r["tag"] == "D=10 float64"))}
     phase_bench_kernels(torch)
 
     log(f"[env] nvidia-smi: {smi}")
     log(kernels_line(results, main_path, launches))
+    if not launches["sym_eig"] > 0:
+        raise AssertionError("sym_eig: no launch counted on the main path")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

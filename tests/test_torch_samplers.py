@@ -1,7 +1,8 @@
 """The port's samplers and optimisers: slice and ensemble sampling judged
 by the moments of a Gaussian (as `tests/test_ensemble_hyp.py` does),
-CMA-ES on a quadratic, and the batched L-BFGS reaching the minimum the JAX
-reference reaches."""
+CMA-ES on quadratics (against itself run by hand and against the JAX
+reference), the CPU path of its eigensolver wrapper, and the batched L-BFGS
+reaching the minimum the JAX reference reaches."""
 
 import numpy as np
 import jax
@@ -21,7 +22,8 @@ from vbmc_tpu_torch.gp.config import GPConfig as TGPConfig
 from vbmc_tpu_torch.gp.fit import TrainOptions, train_gp, hyp_sampler_for
 from vbmc_tpu_torch.optim import minimize_lbfgs_bounded, fminadam, \
     value_and_grad
-from vbmc_tpu_torch.samplers.cmaes import cmaes_minimize
+from vbmc_tpu_torch.kernels import sym_eig
+from vbmc_tpu_torch.samplers.cmaes import CMAES, cmaes_minimize
 from vbmc_tpu_torch.samplers.ensemble import ensemble_slice_final
 from vbmc_tpu_torch.samplers.slice import slice_sample_chains
 
@@ -80,14 +82,25 @@ def test_ensemble_final_samples_gaussian():
     np.testing.assert_allclose(np.cov(pooled.T), COV, atol=0.22)
 
 
-def test_cmaes_minimizes_ill_conditioned_quadratic():
-    D = 4
-    scales = torch.tensor([1.0, 10.0, 0.1, 3.0], dtype=torch.float64)
-    target = torch.tensor([0.3, -0.2, 1.0, 0.5], dtype=torch.float64)
+def _quadratic(D):
+    """An axis-aligned quadratic with scales 0.1 to 10 (D=4: the scales
+    and minimum the test has used since the port began)."""
+    if D == 4:
+        scales = torch.tensor([1.0, 10.0, 0.1, 3.0], dtype=torch.float64)
+        target = torch.tensor([0.3, -0.2, 1.0, 0.5], dtype=torch.float64)
+    else:
+        scales = torch.logspace(-1, 1, D, dtype=torch.float64)
+        target = torch.linspace(-0.5, 1.0, D, dtype=torch.float64)
 
     def f(xs):
         return (((xs - target) * scales) ** 2).sum(1)
 
+    return f, target
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 10])
+def test_cmaes_minimizes_ill_conditioned_quadratic(D):
+    f, target = _quadratic(D)
     gen = torch.Generator().manual_seed(0)
     lb = torch.full((D,), -5.0, dtype=torch.float64)
     res = cmaes_minimize(gen, f, torch.zeros(D, dtype=torch.float64),
@@ -95,6 +108,154 @@ def test_cmaes_minimizes_ill_conditioned_quadratic():
                          max_evals=3000, popsize=16)
     assert float(res.f_best) < 1e-6
     np.testing.assert_allclose(res.x_best.numpy(), target.numpy(), atol=1e-3)
+    assert res.n_evals == 188 * 16
+
+
+def test_cmaes_generations_by_hand_are_cmaes_minimize():
+    """On the CPU `start` and `finish` are the generation function run
+    n_gen times: by hand it gives the same bits, and n_gen lam
+    evaluations."""
+    D = 4
+    f, _ = _quadratic(D)
+    calls = []
+
+    def f_counted(xs):
+        calls.append(xs.shape[0])
+        return f(xs)
+
+    args = (torch.zeros(D, dtype=torch.float64),
+            torch.ones(D, dtype=torch.float64),
+            torch.full((D,), -5.0, dtype=torch.float64),
+            torch.full((D,), 5.0, dtype=torch.float64))
+    es = CMAES(torch.Generator().manual_seed(3), f_counted, *args,
+               max_evals=500, popsize=16)
+    assert es.n_gen == 32
+    for _ in range(es.n_gen):
+        es.generation()
+    assert int(es.k) == es.n_gen
+    by_hand = es.result()
+    res = cmaes_minimize(torch.Generator().manual_seed(3), f, *args,
+                         max_evals=500, popsize=16)
+    assert res.n_evals == by_hand.n_evals == es.n_gen * es.lam == sum(calls)
+    for field in ("x_best", "f_best", "x_mean"):
+        assert torch.equal(getattr(by_hand, field), getattr(res, field))
+
+
+def test_cmaes_start_value_is_the_best_to_beat():
+    """``f0``, the start's own value, only seeds the best point: above every
+    value CMA-ES finds it changes no bit of the result, below all of them
+    the result is the start."""
+    D = 4
+    f, _ = _quadratic(D)
+    x0 = torch.full((D,), 0.5, dtype=torch.float64)
+    args = (x0, torch.ones(D, dtype=torch.float64),
+            torch.full((D,), -5.0, dtype=torch.float64),
+            torch.full((D,), 5.0, dtype=torch.float64))
+
+    def run(f0=None):
+        return cmaes_minimize(torch.Generator().manual_seed(3), f, *args,
+                              max_evals=500, popsize=16, f0=f0)
+
+    free, high = run(), run(torch.tensor(1e300, dtype=torch.float64))
+    for field in ("x_best", "f_best", "x_mean"):
+        assert torch.equal(getattr(free, field), getattr(high, field))
+    low = run(torch.tensor(-1.0, dtype=torch.float64))
+    assert torch.equal(low.x_best, x0) and float(low.f_best) == -1.0
+    assert torch.equal(low.x_mean, free.x_mean)
+
+
+def test_launch_counts_charge_and_take_back():
+    """`kernels.add_launches` charges a reading of `launch_counts` as many
+    times as asked, and takes it back with -1: what CMA-ES does with the
+    launches a graph records."""
+    from vbmc_tpu_torch import kernels
+
+    start = kernels.launch_counts()
+    try:
+        kernels.sym_eig.launches += 1
+        kernels.sym_eig.launches_f32 += 1
+        recorded = kernels.launch_counts(since=start)
+        assert recorded == [(0, 0), (0, 0), (1, 1)]
+        kernels.add_launches(recorded, -1)
+        assert kernels.launch_counts() == start
+        kernels.add_launches(recorded, 374)
+        assert kernels.launch_counts(since=start) == [(0, 0), (0, 0),
+                                                      (374, 374)]
+    finally:
+        for k, (n, n32) in zip(kernels.KERNELS, start):
+            k.launches, k.launches_f32 = n, n32
+
+
+def test_cmaes_agrees_with_the_jax_reference():
+    """The same rotated ill-conditioned quadratic through both packages,
+    eight seeds each (their random streams differ, so the runs are
+    compared by their spread): on a short budget the median log10 of the
+    best value agrees within 1.5, and on a long one both reach the minimum
+    to 1e-10 on every seed."""
+    from vbmc_tpu.samplers.cmaes import cmaes_minimize as j_cmaes
+
+    rng = np.random.default_rng(5)
+    D = 4
+    Q, _ = np.linalg.qr(rng.standard_normal((D, D)))
+    H = Q @ np.diag(1.0 / np.array([10.0, 3.0, 1.0, 0.3]) ** 2) @ Q.T
+    x_opt = rng.uniform(-1, 1, D)
+    Hj, xj = jnp.asarray(H), jnp.asarray(x_opt)
+    Ht, xt = torch.tensor(H), torch.tensor(x_opt)
+
+    def fj(xs):
+        return jnp.einsum("nd,de,ne->n", xs - xj, Hj, xs - xj)
+
+    def ft(xs):
+        return torch.einsum("nd,de,ne->n", xs - xt, Ht, xs - xt)
+
+    jitted = {}
+
+    def both(seed, max_evals):
+        if max_evals not in jitted:     # one compile a budget
+            jitted[max_evals] = jax.jit(lambda key: j_cmaes(
+                key, fj, jnp.zeros(D), jnp.ones(D), jnp.full(D, -20.0),
+                jnp.full(D, 20.0), max_evals=max_evals, popsize=16))
+        rj = jitted[max_evals](jax.random.PRNGKey(seed))
+        one = torch.ones(D, dtype=torch.float64)
+        rt = cmaes_minimize(torch.Generator().manual_seed(seed), ft, 0 * one,
+                            one, -20 * one, 20 * one, max_evals=max_evals,
+                            popsize=16)
+        assert rj.n_evals == rt.n_evals
+        return rj, rt
+
+    short = [both(s, 800) for s in range(8)]
+    med_j = np.median([np.log10(float(rj.f_best)) for rj, _ in short])
+    med_t = np.median([np.log10(float(rt.f_best)) for _, rt in short])
+    assert abs(med_j - med_t) < 1.5, (med_j, med_t)
+    for s in range(2):
+        rj, rt = both(s, 3000)
+        np.testing.assert_allclose(np.asarray(rj.x_best), x_opt, atol=1e-10)
+        np.testing.assert_allclose(rt.x_best.numpy(), x_opt, atol=1e-10)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 10, 128])
+def test_sym_eig_on_the_cpu_is_eigh(D):
+    """The eigen wrapper's CPU path: B diag(L) B^T gives C back and B is
+    orthogonal."""
+    rng = np.random.default_rng(D)
+    G = rng.standard_normal((D, D))
+    C = torch.tensor(G @ G.T + 0.1 * np.eye(D))
+    L, B = sym_eig(C)
+    scale = float(C.abs().max())
+    assert float((B @ torch.diag(L) @ B.T - C).abs().max()) < 1e-12 * scale
+    assert float((B.T @ B - torch.eye(D, dtype=C.dtype)).abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("A, err", [
+    (torch.eye(129, dtype=torch.float64), ValueError),
+    (torch.zeros((3, 4), dtype=torch.float64), ValueError),
+    (torch.zeros((2, 2, 2), dtype=torch.float64), ValueError),
+    (torch.eye(3, dtype=torch.float16), TypeError),
+    (torch.eye(3, dtype=torch.int64), TypeError),
+])
+def test_sym_eig_refuses_what_the_kernel_does_not_take(A, err):
+    with pytest.raises(err):
+        sym_eig(A)
 
 
 def _gp_problem(seed=0, D=2, n=30):

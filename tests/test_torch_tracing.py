@@ -19,7 +19,8 @@ from benchmark import run as brun
 ROOT = Path(__file__).resolve().parent.parent
 SPAN_READERS = ("active_sampling.search", "active_sampling.refine",
                 "active_sampling.gp_update", "gp_train.map",
-                "gp_train.sample", "gp_train.build")
+                "gp_train.sample", "gp_train.build",
+                "active_sampling.refine.capture")
 
 
 # ------------------------------------------------------------- the tracer
@@ -149,6 +150,7 @@ def test_the_span_log_nests_and_covers_the_call(short_run):
         assert ns[parent] >= v, parent
     for path in SPAN_READERS:
         assert path in ns, path
+    assert "active_sampling.refine.replay" in ns
     # a warp's own parts, and GP training under it keeps its names
     assert res.warps_made >= 1
     for part in ("rotoscale", "bounds", "transform", "map", "sample",
@@ -161,7 +163,7 @@ def test_the_span_log_nests_and_covers_the_call(short_run):
 
 
 def test_the_benchmark_readers_read_the_spans(short_run):
-    """The six readers, loaded as `benchmark/run.py` loads them, on a run
+    """The seven readers, loaded as `benchmark/run.py` loads them, on a run
     dict whose timers are summed as `run.py` sums the window's."""
     res, infos, _, _ = short_run
     window = infos[1:]

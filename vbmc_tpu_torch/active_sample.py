@@ -265,24 +265,26 @@ def _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search: int, n_heavy: int,
 
 
 def _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
-                       max_evals: int, popsize: int):
+                       max_evals: int, popsize: int) -> np.ndarray:
     """Sweep winner, refined by CMA-ES started at it with the VP's
-    per-dimension scales; the refined point is taken only if better."""
+    per-dimension scales; the refined point is taken only if better.
+    Returns the chosen point on the host."""
     acq_f = torch.where(torch.isfinite(acq), acq, torch.inf)
     best = torch.argmin(acq_f)
     x0, f0 = Xs[best], acq_f[best]
     insigma = torch.sqrt(torch.diagonal(cov_t).clamp_min(1e-12))
     res = cmaes_minimize(gen, f_batch, x0, insigma, torch.minimum(x0, sb_lb),
                          torch.maximum(x0, sb_ub), max_evals=max_evals,
-                         popsize=popsize)
-    return torch.where(res.f_best < f0, res.x_best, x0), f0
+                         popsize=popsize, f0=f0)
+    return to_np(res.x_best)
 
 
 def _propose_point(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
                    sb_lb, sb_ub, n_search: int, n_heavy: int, n_mvn: int,
                    n_box: int, max_evals: int, popsize: int,
                    smooth: bool = False):
-    """One acquisition step: candidates -> sweep -> argmin -> CMA-ES."""
+    """One acquisition step: candidates -> sweep -> argmin -> CMA-ES.
+    Returns the chosen point on the host."""
     with span("search"):
         Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search,
                                     n_heavy, n_mvn, n_box)
@@ -306,7 +308,8 @@ def _propose_point_is(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
     """One VIQR / IMIQR acquisition step: importance-sampling set ->
     candidates -> sweep -> argmin -> CMA-ES on the plain evaluation. The
     set is rebuilt for every point: the GP posterior changes as
-    evaluations accrue (`activesample_vbmc.m:208-211`)."""
+    evaluations accrue (`activesample_vbmc.m:208-211`). Returns the chosen
+    point on the host."""
     with span("is_set"):
         ais = build_is_state_core(gen, cfg, name, vp, gp, n_is_vp, n_is_box,
                                   n_is_mcmc, mh_steps=mh_steps,
@@ -446,15 +449,11 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                                if acq_name == "eig" else None),
                 delta=delta)
             if fused_ok and use_is:
-                x_new, _ = _propose_point_is(cfg, acq_name, gen, vp, gp,
-                                             state, sb_lb, sb_ub, **is_sizes,
-                                             **common)
-                x_best = to_np(x_new)
+                x_best = _propose_point_is(cfg, acq_name, gen, vp, gp, state,
+                                           sb_lb, sb_ub, **is_sizes, **common)
             elif fused_ok:
-                x_new, _ = _propose_point(cfg, acq_name, gen, vp, gp, state,
-                                          sb_lb, sb_ub, smooth=smooth,
-                                          **common)
-                x_best = to_np(x_new)
+                x_best = _propose_point(cfg, acq_name, gen, vp, gp, state,
+                                        sb_lb, sb_ub, smooth=smooth, **common)
             else:
                 # The importance-sampling set is rebuilt for every point:
                 # the GP changes as evaluations accrue
@@ -512,7 +511,8 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                         x_ref, f_ref = res.x_best, float(res.f_best)
                         if has_int:
                             # rounding may change the value: evaluate there
-                            x_ref = real_to_int(logger.trinfo, x_ref[None, :],
+                            x_ref = real_to_int(logger.trinfo,
+                                                t(x_ref)[None, :],
                                                 integer_mask)[0]
                             f_ref = float(f_batch(x_ref[None, :])[0])
                         if f_ref < f_best:

@@ -246,8 +246,8 @@ def _int_basis_expect(cfg: GPConfig, mu, sigma, lam):
     if cfg.intmean >= INTMEAN_QUAD:
         cols.append(mu * mu + _s2lam2(sigma, lam))
     if cfg.intmean >= INTMEAN_FULLQUAD:
-        iu, ju = np.triu_indices(cfg.D, k=1)
-        cols.append(mu[..., iu] * mu[..., ju])
+        iu, ju = torch.triu_indices(cfg.D, cfg.D, 1, device=mu.device)
+        cols.append(mu.index_select(-1, iu) * mu.index_select(-1, ju))
     return torch.cat(cols, dim=-1)
 
 

@@ -32,8 +32,9 @@ def _center(cfg: GPConfig, like: torch.Tensor) -> torch.Tensor:
             f"meanfun {cfg.meanfun} requires GPConfig.fix_center of length "
             f"D={cfg.D} (got {len(cfg.fix_center)}); compute it with "
             "gp.means.fix_center_from_data(X, y)")
-    return torch.as_tensor(cfg.fix_center, dtype=like.dtype,
-                           device=like.device)
+    # one fill a coordinate on the device, not a copy from the host: the
+    # acquisition's CMA-ES captures this inside a CUDA graph
+    return torch.stack([like.new_full((), float(v)) for v in cfg.fix_center])
 
 
 def int_mean_basis(cfg: GPConfig, X: torch.Tensor) -> torch.Tensor:
@@ -48,8 +49,8 @@ def int_mean_basis(cfg: GPConfig, X: torch.Tensor) -> torch.Tensor:
     if cfg.intmean >= INTMEAN_QUAD:
         cols.append(X * X)
     if cfg.intmean >= INTMEAN_FULLQUAD:
-        iu, ju = np.triu_indices(cfg.D, k=1)
-        cols.append(X[:, iu] * X[:, ju])
+        iu, ju = torch.triu_indices(cfg.D, cfg.D, 1, device=X.device)
+        cols.append(X.index_select(1, iu) * X.index_select(1, ju))
     return torch.cat(cols, dim=1)
 
 

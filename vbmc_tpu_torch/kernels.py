@@ -1,15 +1,21 @@
-"""The acquisition sweeps as hand-written CUDA kernels, each beside its plain
-PyTorch version:
+"""The acquisition sweeps and CMA-ES's eigensolver as hand-written CUDA
+kernels, each beside its plain PyTorch version:
 
 - `prospective_acq` (`csrc/prospective_acq.cu`, the port of
   `vbmc_tpu/pallas_kernels.py:fused_prospective_acq`), the noiseless path;
 - `viqr_acq` (`csrc/viqr_acq.cu`, the port of
-  `vbmc_tpu/pallas_kernels.py:fused_viqr_acq`), the noisy path.
+  `vbmc_tpu/pallas_kernels.py:fused_viqr_acq`), the noisy path;
+- `sym_eig` (`csrc/sym_eig.cu`, no TPU kernel: one symmetric D x D matrix,
+  D <= 128, by cyclic Jacobi on one CTA), the eigendecomposition of a CMA-ES
+  generation, which has to run inside a CUDA graph where
+  `torch.linalg.eigh`, its plain version, cannot.
 
-Each wrapper runs its plain version (`*_reference`) on a CPU tensor; on a
-CUDA tensor it launches the kernel or raises, with no fallback. Each launch
-adds one to the wrapper's ``launches``, and a float32 one also to its
-``launches_f32``.
+Each wrapper runs its plain version on a CPU tensor; on a CUDA tensor it
+launches the kernel or raises, with no fallback. Each launch adds one to the
+wrapper's ``launches``, and a float32 one also to its ``launches_f32``; a
+launch recorded into a CUDA graph counts at each of the graph's replays, as
+`samplers/cmaes.py` charges them (`launch_counts`, `add_launches`), and not
+at the capture.
 
 Both kernels share `csrc/gp_tile.cuh`: per block, the ks tile computed once
 in dynamic shared memory, the left operands (Binv, invKzk) streamed through
@@ -43,6 +49,9 @@ from vbmc_tpu_torch.vp import vp_log_pdf_trans
 
 _LOG_REALMIN = -708.0
 _MAX_D = 32
+# The largest matrix `sym_eig` takes: A of 128 x 128 float64 fills 128 KB of
+# a block's shared memory.
+_EIG_MAX_D = 128
 # The kernels stage the training axis up to 32 rows at a time, and their narrowest
 # candidate tile holds N = 1024 float64 rows in a block's shared memory.
 _N_STEP = 32
@@ -125,7 +134,8 @@ def viqr_acq_reference(cfg: GPConfig, Xs, gp, ais, sn2c, tol_var,
 
 
 SOURCES = {"prospective_acq": CSRC / "prospective_acq.cu",
-           "viqr_acq": CSRC / "viqr_acq.cu"}
+           "viqr_acq": CSRC / "viqr_acq.cu",
+           "sym_eig": CSRC / "sym_eig.cu"}
 # The phases of pass 1 that a -DVBMC_PROFILE build times (gp_tile.cuh).
 PHASES = ("setup", "ks_tile", "binv_steps", "binv_fold", "reduce",
           "invkzk_steps", "viqr_epilogue", "merge")
@@ -198,9 +208,10 @@ class _Kernel:
                 fn.argtypes = ([ctypes.c_void_p] * self.n_ptr
                                + [ctypes.c_int] * self.n_int + list(self.tail))
                 fn.restype = ctypes.c_int
-            tile = getattr(lib, f"{self.name}_tile")
-            tile.argtypes = [ctypes.c_int] * 3
-            tile.restype = ctypes.c_int
+            if hasattr(lib, f"{self.name}_tile"):
+                tile = getattr(lib, f"{self.name}_tile")
+                tile.argtypes = [ctypes.c_int] * 3
+                tile.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -360,5 +371,57 @@ class ViqrAcq(_Kernel):
         return out
 
 
+class SymEig(_Kernel):
+    """The eigendecomposition of one symmetric matrix (its lower triangle is
+    read, as `torch.linalg.eigh` reads it): ``A`` (D, D) -> (eigenvalues
+    (D,), eigenvectors (D, D) as columns), in no particular order and with
+    no particular signs. `torch.linalg.eigh` for a CPU tensor; for a CUDA
+    tensor the kernel, which reads nothing back to the host and so can be
+    captured in a CUDA graph."""
+
+    name = "sym_eig"
+    n_ptr, n_int = 3, 1
+    tail = (ctypes.c_void_p,)
+
+    def __call__(self, A):
+        if A.dim() != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError(f"{self.name} takes one square matrix, got "
+                             f"shape {tuple(A.shape)}")
+        D = A.shape[0]
+        if not 1 <= D <= _EIG_MAX_D:
+            raise ValueError(f"{self.name} takes 1 <= D <= {_EIG_MAX_D}, "
+                             f"got D={D}")
+        if A.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{self.name} takes float32/float64, got "
+                            f"{A.dtype}")
+        if not self._check_device(A):
+            return torch.linalg.eigh(A)
+        A = A.contiguous()
+        evals = torch.empty(D, dtype=A.dtype, device=A.device)
+        evecs = torch.empty((D, D), dtype=A.dtype, device=A.device)
+        self._run(A, (A.data_ptr(), evals.data_ptr(), evecs.data_ptr(), D))
+        return evals, evecs
+
+
 prospective_acq = ProspectiveAcq()
 viqr_acq = ViqrAcq()
+sym_eig = SymEig()
+KERNELS = (prospective_acq, viqr_acq, sym_eig)
+
+
+def launch_counts(since=None) -> list:
+    """Every wrapper's (launches, launches_f32), or what each gained since
+    an earlier reading ``since``."""
+    now = [(k.launches, k.launches_f32) for k in KERNELS]
+    if since is None:
+        return now
+    return [(a - a0, b - b0) for (a, b), (a0, b0) in zip(now, since)]
+
+
+def add_launches(counts, times: int = 1):
+    """Add ``times`` times the launches ``counts`` (from `launch_counts`)
+    to the wrappers' counters: the launches a CUDA graph recorded, once a
+    replay, taken back from its capture with ``times`` -1."""
+    for k, (n, n32) in zip(KERNELS, counts):
+        k.launches += times * n
+        k.launches_f32 += times * n32

@@ -3,9 +3,21 @@
 
 (mu/mu_w, lambda)-CMA-ES with rank-1, rank-mu and active (negative)
 covariance updates; each generation's population is one batched objective
-call. The generation loop is a Python loop of fixed length. The D x D
-eigendecomposition runs on the host (a tiny matrix, where a device solver
-would cost more than the whole generation).
+call, for ceil(max_evals / lambda) generations.
+
+A generation (`CMAES.generation`) reads and updates a fixed set of tensors
+in place (the mean, step size, covariance, evolution paths, best point and
+the generation index) and never waits for the device: the step size and
+the hsig switch are 0-d tensors, the D x D eigendecomposition is
+`kernels.sym_eig`, and the normals of every generation are drawn up front.
+On CUDA tensors generation 0 runs eagerly on a side stream (also the
+warm-up that cuBLAS and the allocator need before a capture), generation 1
+is captured as a CUDA graph, and the graph is replayed for the other
+n_gen - 1 generations: one launch a generation in place of a few hundred,
+and no host sync until the result is read. CPU tensors run the same
+function n_gen times. A host sync inside the objective makes the capture
+raise. The kernels' launch counters (`kernels.KERNELS`) count what a graph
+launches at each replay, not at its capture, which runs nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +28,10 @@ from typing import Callable
 
 import torch
 
+from vbmc_tpu_torch import kernels
+from vbmc_tpu_torch.kernels import sym_eig
+from vbmc_tpu_torch.tracing import span
+
 
 @dataclasses.dataclass
 class CMAESResult:
@@ -25,88 +41,198 @@ class CMAESResult:
     n_evals: int
 
 
+# One side stream and one graph memory pool a device, for the process. The
+# last graph is kept alive so that the pool lives from call to call: each
+# capture reuses the blocks the previous one freed, and memory does not grow
+# from point to point.
+_CAPTURE: dict = {}
+
+
+def _capture_slot(device: torch.device) -> dict:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _CAPTURE:
+        _CAPTURE[idx] = dict(stream=torch.cuda.Stream(idx),
+                             pool=torch.cuda.graph_pool_handle(), graph=None)
+    return _CAPTURE[idx]
+
+
+class CMAES:
+    """One CMA-ES run of f_batch((lam, D) -> (lam,)) from x0 with
+    per-dimension scales sigma0, inside [lb, ub]: `start` runs generation 0
+    (and on CUDA captures generation 1), `finish` the other n_gen - 1 and
+    returns `result`; `generation` is one generation, in place. ``f0``,
+    x0's own value where it is known, is the best to beat: the best point
+    stays x0 unless a generation finds a lower value."""
+
+    def __init__(self, gen: torch.Generator, f_batch: Callable,
+                 x0: torch.Tensor, sigma0: torch.Tensor, lb: torch.Tensor,
+                 ub: torch.Tensor, max_evals: int,
+                 popsize: int | None = None,
+                 f0: torch.Tensor | None = None):
+        D = x0.shape[0]
+        dt, dev = x0.dtype, x0.device
+        lam = popsize if popsize is not None \
+            else 4 + int(3 * math.log(max(D, 2)))
+        mu = lam // 2
+        ar = torch.arange(1, 2 * mu + 1, dtype=torch.float64)
+        w = math.log(mu + 0.5) - torch.log(ar[:mu])
+        w = w / w.sum()
+        mueff = float(1.0 / (w ** 2).sum())
+
+        cc = (4 + mueff / D) / (D + 4 + 2 * mueff / D)
+        cs = (mueff + 2) / (D + mueff + 5)
+        c1 = 2 / ((D + 1.3) ** 2 + mueff)
+        cmu = min(1 - c1, 2 * (mueff - 2 + 1 / mueff) / ((D + 2) ** 2 + mueff))
+        damps = 1 + 2 * max(0.0, math.sqrt((mueff - 1) / (D + 1)) - 1) + cs
+        chiN = math.sqrt(D) * (1 - 1 / (4 * D) + 1 / (21 * D ** 2))
+
+        # Active CMA: negative weights for the worst mu samples, scaled to
+        # keep C positive definite (the reference runs CMA.active=1).
+        w_neg_raw = math.log(mu + 0.5) - torch.log(ar[mu:])
+        w_neg_raw = w_neg_raw - w_neg_raw.max()
+        mueff_neg = float(w_neg_raw.sum() ** 2
+                          / max(float((w_neg_raw ** 2).sum()), 1e-12))
+        a_mu = 1.0 + c1 / max(cmu, 1e-12)
+        a_mueff = 1.0 + 2.0 * mueff_neg / (mueff + 2.0)
+        a_posdef = (1.0 - c1 - cmu) / (D * max(cmu, 1e-12))
+        neg_scale = min(a_mu, a_mueff, a_posdef)
+        w_neg = w_neg_raw / max(-float(w_neg_raw.sum()), 1e-12) * neg_scale
+
+        self.f_batch = f_batch
+        self.D, self.lam, self.mu = D, lam, mu
+        self.cc, self.cs, self.c1, self.cmu = cc, cs, c1, cmu
+        self.damps, self.chiN = damps, chiN
+        self.c_ps = math.sqrt(cs * (2 - cs) * mueff)
+        self.c_pc = math.sqrt(cc * (2 - cc) * mueff)
+        self.w = w.to(dev, dt)
+        self.w_neg = w_neg.to(dev, dt)
+        self.n_gen = max(int(math.ceil(max_evals / lam)), 1)
+        self.x0, self.lb, self.ub = x0, lb, ub
+        self.scale = sigma0.clamp_min(1e-12)
+        self.Z = torch.randn((self.n_gen, lam, D), generator=gen, device=dev,
+                             dtype=dt)
+        self.k = torch.zeros(1, dtype=torch.long, device=dev)
+        self.m = torch.zeros(D, dtype=dt, device=dev)
+        self.sigma = torch.ones((), dtype=dt, device=dev)
+        self.C = torch.eye(D, dtype=dt, device=dev)
+        self.ps = torch.zeros(D, dtype=dt, device=dev)
+        self.pc = torch.zeros(D, dtype=dt, device=dev)
+        self.x_best = x0.clone()
+        self.f_best = torch.full((), torch.finfo(dt).max, dtype=dt,
+                                 device=dev) if f0 is None \
+            else f0.to(dev, dt).reshape(()).clone()
+        self._graph = None
+        self._graph_launches = None
+
+    def generation(self):
+        """Generation k: sample, evaluate, update every state tensor in
+        place, k += 1."""
+        evals, B = sym_eig(self.C)
+        Dd = evals.clamp_min(1e-20).sqrt()
+        Z = self.Z.index_select(0, self.k)[0]
+        Y = (Z * Dd[None, :]) @ B.T                     # N(0, C)
+        xs = torch.minimum(torch.maximum(
+            self.x0 + (self.m[None, :] + self.sigma * Y) * self.scale,
+            self.lb), self.ub)
+        fs = self.f_batch(xs)
+        fs = torch.where(torch.isfinite(fs), fs, torch.finfo(fs.dtype).max)
+        order = torch.argsort(fs)
+        Y_sorted = Y.index_select(0, order)
+        top, bot = Y_sorted[:self.mu], Y_sorted[self.lam - self.mu:]
+        y_w = self.w @ top
+        self.m.add_(self.sigma * y_w)
+
+        self.ps.mul_(1 - self.cs).add_(B @ ((B.T @ y_w) / Dd),
+                                       alpha=self.c_ps)
+        ps_norm = torch.linalg.vector_norm(self.ps)
+        self.sigma.copy_(torch.clamp(self.sigma * torch.exp(
+            (self.cs / self.damps) * (ps_norm / self.chiN - 1)), 1e-12, 1e6))
+        hsig = (ps_norm / math.sqrt(1 - (1 - self.cs) ** 2) / self.chiN
+                < (1.4 + 2 / (self.D + 1))).to(y_w.dtype)
+        self.pc.mul_(1 - self.cc).add_(hsig * self.c_pc * y_w)
+        rank_mu = torch.einsum("i,ij,ik->jk", self.w, top, top)
+        maha2 = (((bot @ B) / Dd[None, :]) ** 2).sum(1)
+        Y_hat = bot * torch.sqrt(self.D / maha2.clamp_min(1e-12))[:, None]
+        rank_neg = torch.einsum("i,ij,ik->jk", -self.w_neg, Y_hat, Y_hat)
+        upd = self.c1 * torch.outer(self.pc, self.pc) \
+            + self.cmu * (rank_mu - rank_neg)
+        C = (1 - self.c1 - self.cmu) * self.C + upd
+        self.C.copy_(0.5 * (C + C.T))
+
+        first = order[:1]
+        f0 = fs.index_select(0, first)[0]
+        better = f0 < self.f_best
+        self.x_best.copy_(torch.where(better, xs.index_select(0, first)[0],
+                                      self.x_best))
+        self.f_best.copy_(torch.where(better, f0, self.f_best))
+        self.k.add_(1)
+
+    def start(self):
+        """Generation 0. On CUDA with more generations to come it runs on
+        the device's side stream, then generation 1 is captured there as a
+        graph (recorded, not run) and instantiated."""
+        if self.x0.device.type != "cuda" or self.n_gen == 1:
+            self.generation()
+            return
+        slot = _capture_slot(self.x0.device)
+        side = slot["stream"]
+        main = torch.cuda.current_stream(self.x0.device)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin and capture_end, not the torch.cuda.graph context:
+        # that one synchronises the device and empties the allocator's cache
+        # on entry, which every call would pay for
+        with torch.cuda.stream(side):
+            self.generation()
+            before = kernels.launch_counts()
+            graph.capture_begin(pool=slot["pool"])
+            try:
+                self.generation()
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        slot["graph"] = self._graph = graph
+        # the capture launched nothing: each replay launches what it recorded
+        self._graph_launches = kernels.launch_counts(since=before)
+        kernels.add_launches(self._graph_launches, -1)
+
+    def finish(self) -> CMAESResult:
+        """Generations 1 to n_gen - 1 (the graph's replays on CUDA), then
+        `result`."""
+        for _ in range(self.n_gen - 1):
+            if self._graph is None:
+                self.generation()
+            else:
+                self._graph.replay()
+        if self._graph is not None:
+            kernels.add_launches(self._graph_launches, self.n_gen - 1)
+        return self.result()
+
+    def result(self) -> CMAESResult:
+        """The best point and value so far, the mean, and the evaluations
+        of the whole run, on the device."""
+        x_mean = torch.minimum(torch.maximum(self.x0 + self.m * self.scale,
+                                             self.lb), self.ub)
+        return CMAESResult(x_best=self.x_best, f_best=self.f_best,
+                           x_mean=x_mean, n_evals=self.n_gen * self.lam)
+
+
 def cmaes_minimize(gen: torch.Generator, f_batch: Callable, x0: torch.Tensor,
                    sigma0: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
-                   max_evals: int, popsize: int | None = None) -> CMAESResult:
+                   max_evals: int, popsize: int | None = None,
+                   f0: torch.Tensor | None = None) -> CMAESResult:
     """Minimise f_batch((lam, D) -> (lam,)) from x0 with per-dimension
-    scales sigma0, for ceil(max_evals / lam) generations."""
-    D = x0.shape[0]
-    dt, dev = x0.dtype, x0.device
-    lam = popsize if popsize is not None else 4 + int(3 * math.log(max(D, 2)))
-    mu = lam // 2
-    ar = torch.arange(1, 2 * mu + 1, dtype=torch.float64)
-    w = math.log(mu + 0.5) - torch.log(ar[:mu])
-    w = w / w.sum()
-    mueff = float(1.0 / (w ** 2).sum())
-
-    cc = (4 + mueff / D) / (D + 4 + 2 * mueff / D)
-    cs = (mueff + 2) / (D + mueff + 5)
-    c1 = 2 / ((D + 1.3) ** 2 + mueff)
-    cmu = min(1 - c1, 2 * (mueff - 2 + 1 / mueff) / ((D + 2) ** 2 + mueff))
-    damps = 1 + 2 * max(0.0, math.sqrt((mueff - 1) / (D + 1)) - 1) + cs
-    chiN = math.sqrt(D) * (1 - 1 / (4 * D) + 1 / (21 * D ** 2))
-
-    # Active CMA: negative weights for the worst mu samples, scaled to keep
-    # C positive definite (the reference runs CMA.active=1).
-    w_neg_raw = math.log(mu + 0.5) - torch.log(ar[mu:])
-    w_neg_raw = w_neg_raw - w_neg_raw.max()
-    mueff_neg = float(w_neg_raw.sum() ** 2
-                      / max(float((w_neg_raw ** 2).sum()), 1e-12))
-    a_mu = 1.0 + c1 / max(cmu, 1e-12)
-    a_mueff = 1.0 + 2.0 * mueff_neg / (mueff + 2.0)
-    a_posdef = (1.0 - c1 - cmu) / (D * max(cmu, 1e-12))
-    neg_scale = min(a_mu, a_mueff, a_posdef)
-    w_neg = w_neg_raw / max(-float(w_neg_raw.sum()), 1e-12) * neg_scale
-    w = w.to(dev, dt)
-    w_neg = w_neg.to(dev, dt)
-
-    n_gen = max(int(math.ceil(max_evals / lam)), 1)
-    scale = sigma0.clamp_min(1e-12)
-    m = torch.zeros(D, dtype=dt, device=dev)
-    sigma = 1.0
-    C = torch.eye(D, dtype=torch.float64)
-    ps = torch.zeros(D, dtype=dt, device=dev)
-    pc = torch.zeros(D, dtype=dt, device=dev)
-    x_best = x0
-    f_best = torch.tensor(torch.finfo(dt).max, dtype=dt, device=dev)
-
-    for _ in range(n_gen):
-        evals, Bh = torch.linalg.eigh(C)
-        Dd = evals.clamp_min(1e-20).sqrt().to(dev, dt)
-        B = Bh.to(dev, dt)
-        Z = torch.randn((lam, D), generator=gen, device=dev, dtype=dt)
-        Y = (Z * Dd[None, :]) @ B.T                     # N(0, C)
-        xs = torch.minimum(torch.maximum(x0 + (m[None, :] + sigma * Y) * scale,
-                                         lb), ub)
-        fs = f_batch(xs)
-        fs = torch.where(torch.isfinite(fs), fs, torch.finfo(dt).max)
-        order = torch.argsort(fs)
-        top = order[:mu]
-        y_w = (w[:, None] * Y[top]).sum(0)
-        m = m + sigma * y_w
-
-        ps = (1 - cs) * ps + math.sqrt(cs * (2 - cs) * mueff) * (
-            B @ ((B.T @ y_w) / Dd))
-        ps_norm = float(torch.linalg.vector_norm(ps))
-        sigma = min(max(sigma * math.exp((cs / damps) * (ps_norm / chiN - 1)),
-                        1e-12), 1e6)
-        hsig = (ps_norm / math.sqrt(1 - (1 - cs) ** 2) / chiN
-                < (1.4 + 2 / (D + 1)))
-        pc = (1 - cc) * pc + float(hsig) * math.sqrt(cc * (2 - cc) * mueff) * y_w
-        rank_mu = torch.einsum("i,ij,ik->jk", w, Y[top], Y[top])
-        Y_bot = Y[order[lam - mu:]]
-        maha2 = (((Y_bot @ B) / Dd[None, :]) ** 2).sum(1)
-        Y_hat = Y_bot * torch.sqrt(D / maha2.clamp_min(1e-12))[:, None]
-        rank_neg = torch.einsum("i,ij,ik->jk", -w_neg, Y_hat, Y_hat)
-        upd = c1 * torch.outer(pc, pc) + cmu * (rank_mu - rank_neg)
-        C = (1 - c1 - cmu) * C + upd.to("cpu", torch.float64)
-        C = 0.5 * (C + C.T)
-
-        f0 = fs[order[0]]
-        better = f0 < f_best
-        x_best = torch.where(better, xs[order[0]], x_best)
-        f_best = torch.where(better, f0, f_best)
-
-    x_mean = torch.minimum(torch.maximum(x0 + m * scale, lb), ub)
-    return CMAESResult(x_best=x_best, f_best=f_best, x_mean=x_mean,
-                       n_evals=n_gen * lam)
+    scales sigma0, for ceil(max_evals / lam) generations: `CMAES`, started
+    in the span "capture" and finished in the span "replay", which ends
+    once the result is on the host (the copy waits for the replays). ``f0``:
+    x0's own value, the best to beat, where it is known."""
+    es = CMAES(gen, f_batch, x0, sigma0, lb, ub, max_evals, popsize, f0)
+    with span("capture"):
+        es.start()
+    with span("replay"):
+        res = es.finish()
+        D = x0.shape[0]
+        host = torch.cat([res.x_best, res.f_best[None], res.x_mean]).cpu()
+    return CMAESResult(x_best=host[:D], f_best=host[D], x_mean=host[D + 1:],
+                       n_evals=res.n_evals)
