@@ -25,6 +25,7 @@ from vbmc_tpu_torch.gp.fit import (TrainOptions, assemble_hyp_prior,
 from vbmc_tpu_torch.gp.gp import GP, build_gp
 from vbmc_tpu_torch.optim import fminadam, minimize_lbfgs_bounded, \
     value_and_grad
+from vbmc_tpu_torch.tracing import span
 from vbmc_tpu_torch.utils.math import bucket_n, bucket_ns, pad_to, to_np
 from vbmc_tpu_torch.vp import VariationalPosterior
 from vbmc_tpu_torch.vpoptim import _bucket_ent
@@ -175,83 +176,87 @@ def _quick_full_update(cfg: GPConfig, gen: torch.Generator, Xp, yp, s2p, mask,
         else:
             buf = hyp_prev
             hyp_mask = torch.arange(sb, device=dev) < ns
-        gp = build_gp(cfg, Xp, yp, s2p, mask, buf, hyp_mask)
-        hm = hyp_mask.to(dt)
-        gls = torch.exp((buf[:, :cfg.D] * hm[:, None]).sum(0)
-                        / hm.sum().clamp_min(1.0))
+        with span("build"):
+            gp = build_gp(cfg, Xp, yp, s2p, mask, buf, hyp_mask)
+            hm = hyp_mask.to(dt)
+            gls = torch.exp((buf[:, :cfg.D] * hm[:, None]).sum(0)
+                            / hm.sum().clamp_min(1.0))
     if not do_vp:
         return gp, vp, gls
 
     K_max, D = vp.mu.shape
-    bnd = eb.compute_vp_bounds(gp, o, K)
     km = vp.kmask.to(dt)
+    tmpl = (vp.mu, vp.sigma, vp.lam, vp.w, vp.kmask)
+    beta = o.elcbo_weight
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=dt)
 
-    J = n_jitter
-    scale = (torch.arange(J, device=dev) > 0).to(dt)
-    mu = vp.mu[None] + scale[:, None, None] * vp.sigma[None, :, None] \
-        * vp.lam[None, None, :] * randn(J, K_max, D)
-    sigma = vp.sigma[None] * torch.exp(0.2 * scale[:, None]
-                                       * randn(J, K_max))
-    lam = vp.lam[None] * torch.exp(0.2 * scale[:, None] * randn(J, D))
-    w = vp.w[None].expand(J, K_max)
-    if flags.opt_weights:
-        w = w * torch.exp(0.2 * scale[:, None] * randn(J, K_max)) * km
-        w = w / w.sum(1, keepdim=True).clamp_min(1e-30)
-    eta = torch.where(vp.kmask, torch.log(w.clamp_min(1e-30)), -40.0)
-    thetas = eb.pack_theta(flags, mu, sigma, lam, eta)
-    tmpl = (vp.mu, vp.sigma, vp.lam, vp.w, vp.kmask)
+    with span("sieve"):
+        bnd = eb.compute_vp_bounds(gp, o, K)
+        J = n_jitter
+        scale = (torch.arange(J, device=dev) > 0).to(dt)
+        mu = vp.mu[None] + scale[:, None, None] * vp.sigma[None, :, None] \
+            * vp.lam[None, None, :] * randn(J, K_max, D)
+        sigma = vp.sigma[None] * torch.exp(0.2 * scale[:, None]
+                                           * randn(J, K_max))
+        lam = vp.lam[None] * torch.exp(0.2 * scale[:, None] * randn(J, D))
+        w = vp.w[None].expand(J, K_max)
+        if flags.opt_weights:
+            w = w * torch.exp(0.2 * scale[:, None] * randn(J, K_max)) * km
+            w = w / w.sum(1, keepdim=True).clamp_min(1e-30)
+        eta = torch.where(vp.kmask, torch.log(w.clamp_min(1e-30)), -40.0)
+        thetas = eb.pack_theta(flags, mu, sigma, lam, eta)
+        with torch.no_grad():
+            Fs, _ = eb.negelcbo(cfg, thetas, gp, *tmpl, flags, 0.0,
+                                ns_fast_k, 0, gen, bnd=bnd,
+                                use_bounds=True)
+        best = torch.argmin(torch.where(torch.isfinite(Fs), Fs, torch.inf))
+        theta0 = thetas[best][None]
 
-    with torch.no_grad():
-        Fs, _ = eb.negelcbo(cfg, thetas, gp, *tmpl, flags, 0.0,
-                            ns_fast_k, 0, gen, bnd=bnd,
-                            use_bounds=True)
-    best = torch.argmin(torch.where(torch.isfinite(Fs), Fs, torch.inf))
-    theta0 = thetas[best][None]
-    beta = o.elcbo_weight
+    with span("optimize"):
+        if ns_ent_k > 0:
+            def f_vg(th, _it):
+                def f(x):
+                    F, _ = eb.negelcbo(cfg, x, gp, *tmpl, flags, beta,
+                                       ns_ent_k, 0, gen, bnd=bnd,
+                                       use_bounds=True)
+                    return F
+                return value_and_grad(f, th)
 
-    if ns_ent_k > 0:
-        def f_vg(th, _it):
-            def f(x):
-                F, _ = eb.negelcbo(cfg, x, gp, *tmpl, flags, beta,
-                                   ns_ent_k, 0, gen, bnd=bnd,
-                                   use_bounds=True)
+            res = fminadam(f_vg, theta0, tol_fun=o.tol_fun_stochastic,
+                           maxiter=adam_iters, step_min=step_min,
+                           step_max=step_max)
+            cands = res.x
+            if use_midpoint:
+                # ELCBO-midpoint selection (`vpoptimize_vbmc.m:103-136`).
+                T = res.f_trace.shape[1]
+                masked = torch.where(torch.arange(T, device=dev)[None, :]
+                                     < res.n_iters[:, None], res.f_trace,
+                                     torch.inf)
+                cands = torch.cat([res.x_trace[0, masked[0].argmin()][None],
+                                   res.x])
+        else:
+            def obj(x):
+                F, _ = eb.negelcbo(cfg, x, gp, *tmpl, flags, beta, 0, 0, gen,
+                                   bnd=bnd, use_bounds=True)
                 return F
-            return value_and_grad(f, th)
+            inf = torch.full_like(theta0[0], math.inf)
+            cands, _ = minimize_lbfgs_bounded(obj, theta0, -inf, inf,
+                                              maxiter=adam_iters)
 
-        res = fminadam(f_vg, theta0, tol_fun=o.tol_fun_stochastic,
-                       maxiter=adam_iters, step_min=step_min,
-                       step_max=step_max)
-        cands = res.x
-        if use_midpoint:
-            # ELCBO-midpoint selection (`vpoptimize_vbmc.m:103-136`).
-            T = res.f_trace.shape[1]
-            masked = torch.where(torch.arange(T, device=dev)[None, :]
-                                 < res.n_iters[:, None], res.f_trace,
-                                 torch.inf)
-            cands = torch.cat([res.x_trace[0, masked[0].argmin()][None],
-                               res.x])
-    else:
-        def obj(x):
-            F, _ = eb.negelcbo(cfg, x, gp, *tmpl, flags, beta, 0, 0, gen,
-                               bnd=bnd, use_bounds=True)
-            return F
-        inf = torch.full_like(theta0[0], math.inf)
-        cands, _ = minimize_lbfgs_bounded(obj, theta0, -inf, inf,
-                                          maxiter=adam_iters)
-
-    with torch.no_grad():
-        sts = eb.elbo_stats(cfg, cands, gp, *tmpl, flags, ns_fine_k,
-                            1, gen)
-    score = -sts["elbo"] + beta * torch.sqrt(sts["varF"].clamp_min(0.0))
-    j = torch.argmin(torch.where(torch.isfinite(score), score, torch.inf))
-    w_new = sts["w"][j] * km
-    w_new = w_new / w_new.sum().clamp_min(1e-30)
-    vp_new = vp.replace(
-        mu=sts["mu"][j].contiguous(), sigma=sts["sigma"][j].contiguous(),
-        lam=sts["lam"][j].contiguous(), w=w_new,
-        eta=torch.where(vp.kmask, torch.log(w_new.clamp_min(1e-30)),
-                        -40.0))
+    with span("pick"):
+        with torch.no_grad():
+            sts = eb.elbo_stats(cfg, cands, gp, *tmpl, flags, ns_fine_k,
+                                1, gen)
+        score = -sts["elbo"] + beta * torch.sqrt(sts["varF"].clamp_min(0.0))
+        j = torch.argmin(torch.where(torch.isfinite(score), score,
+                                     torch.inf))
+        w_new = sts["w"][j] * km
+        w_new = w_new / w_new.sum().clamp_min(1e-30)
+        vp_new = vp.replace(
+            mu=sts["mu"][j].contiguous(), sigma=sts["sigma"][j].contiguous(),
+            lam=sts["lam"][j].contiguous(), w=w_new,
+            eta=torch.where(vp.kmask, torch.log(w_new.clamp_min(1e-30)),
+                            -40.0))
     return gp, vp_new, gls
