@@ -1,0 +1,7 @@
+"""Seconds inside the program's span `active_sampling.full_update.sample.tail` (the slice sampler's replays past the first of a coordinate update, where a chain was not done after it) over the window, per acquired point: 0.0 where the sampler's span `active_sampling.full_update.sample.capture` ran and this one never did, nothing where that one never ran."""
+
+
+def read(run):
+    if "active_sampling.full_update.sample.capture" not in run["timers"]:
+        return None
+    return run["timers"].get("active_sampling.full_update.sample.tail", 0.0) / run["points"]

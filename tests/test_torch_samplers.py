@@ -1,5 +1,8 @@
 """The port's samplers and optimisers: slice and ensemble sampling judged
-by the moments of a Gaussian (as `tests/test_ensemble_hyp.py` does),
+by the moments of a Gaussian (as `tests/test_ensemble_hyp.py` does), the
+trip-based slice sampler against a plain per-chain loop on the same
+uniforms, the GP's log posterior without gradients against the one with
+them,
 CMA-ES on quadratics (against itself run by hand and against the JAX
 reference), the CPU path of its eigensolver wrapper, and the batched L-BFGS
 reaching the minimum the JAX reference reaches."""
@@ -25,7 +28,8 @@ from vbmc_tpu_torch.optim import minimize_lbfgs_bounded, fminadam, \
 from vbmc_tpu_torch.kernels import sym_eig
 from vbmc_tpu_torch.samplers.cmaes import CMAES, cmaes_minimize
 from vbmc_tpu_torch.samplers.ensemble import ensemble_slice_final
-from vbmc_tpu_torch.samplers.slice import slice_sample_chains
+from vbmc_tpu_torch.samplers import slice as slice_mod
+from vbmc_tpu_torch.samplers.slice import SliceChains, slice_sample_chains
 
 torch.set_num_threads(1)
 
@@ -66,6 +70,243 @@ def test_slice_chains_respect_bounds():
     kept = samples[:, :20].reshape(-1, 2)
     assert bool(((kept >= lb) & (kept <= ub)).all())
     assert bool((samples[:, 20:] == 0).all())
+
+
+def _quad2(xs):
+    """The correlated Gaussian of `_logp`, elementwise, so that a row's
+    value does not depend on the batch around it."""
+    a, b, c = (float(PREC[0, 0]), float(PREC[0, 1]), float(PREC[1, 1]))
+    x, y = xs[:, 0], xs[:, 1]
+    return -0.5 * (a * x * x + 2.0 * b * x * y + c * y * y)
+
+
+def _per_chain_slice(logp, x0s, widths, lb, ub, n_sweeps, log_v, r, u):
+    """The slice sampler's rules, one chain and one step at a time, on the
+    uniforms the trip-based sampler drew: each chain's states after every
+    sweep (C, n_sweeps, D), and its stepping-out and shrinking steps at
+    every update (2, C, n_sweeps * D)."""
+    C, D = x0s.shape
+    states = torch.zeros((C, n_sweeps, D), dtype=x0s.dtype)
+    steps = torch.zeros((2, C, n_sweeps * D), dtype=torch.long)
+    for c in range(C):
+        x = x0s[c].clone()
+        lp = logp(x[None])[0]
+        for k in range(n_sweeps * D):
+            d = k % D
+
+            def at(v):
+                z = x.clone()
+                z[d] = v
+                return logp(z[None])[0]
+
+            xd, w = x[d].clone(), widths[d]
+            log_u = lp + log_v[k, c]
+            left = torch.maximum(xd - r[k, c] * w, lb[d])
+            right = torch.minimum(xd + (1.0 - r[k, c]) * w, ub[d])
+            go_l = go_r = True
+            n = 0
+            while (go_l or go_r) and n < 16:
+                lp_l, lp_r = at(left), at(right)
+                go_l = go_l and bool(lp_l > log_u) and bool(left > lb[d])
+                go_r = go_r and bool(lp_r > log_u) and bool(right < ub[d])
+                if go_l:
+                    left = torch.maximum(left - w, lb[d])
+                if go_r:
+                    right = torch.minimum(right + w, ub[d])
+                n += 1
+            steps[0, c, k] = n
+            for j in range(64):
+                prop = left + (right - left) * u[k, j, c]
+                lp_p = at(prop)
+                steps[1, c, k] = j + 1
+                if bool(lp_p > log_u):
+                    x[d], lp = prop, lp_p
+                    break
+                if bool(prop < xd):
+                    left = prop
+                else:
+                    right = prop
+            if d == D - 1:
+                states[c, k // D] = x
+    return states, steps
+
+
+def _spike_at(x0s):
+    def logp(xs):
+        hit = (xs[:, None, :] == x0s[None]).all(-1).any(-1)
+        return torch.where(hit, 0.0, -torch.inf).to(xs.dtype)
+    return logp
+
+
+_F64 = dict(dtype=torch.float64)
+SLICE_CASES = {
+    # a Gaussian in a wide box
+    "gaussian": (_quad2, torch.tensor([[0.3, -0.2], [1.5, 0.4], [-2.0, 1.0],
+                                       [0.0, 0.0]], **_F64),
+                 torch.ones(2, **_F64), torch.full((2,), -10.0, **_F64),
+                 torch.full((2,), 10.0, **_F64), 6),
+    # flat: every chain steps out to its cap of 16 on both sides
+    "stepout_cap": (lambda xs: torch.zeros(xs.shape[0], **_F64),
+                    torch.tensor([[0.0, 0.0], [3.0, -1.0], [-2.0, 5.0]],
+                                 **_F64),
+                    torch.full((2,), 0.01, **_F64),
+                    torch.full((2,), -1e3, **_F64),
+                    torch.full((2,), 1e3, **_F64), 2),
+    # all mass on the starting points, brackets too wide to close in on
+    # them: 64 shrinking steps miss and the chains stay put
+    "shrink_cap": (None, torch.tensor([[0.1, 0.2], [-0.7, 1.3]], **_F64),
+                   torch.full((2,), 1e12, **_F64),
+                   torch.full((2,), -1e15, **_F64),
+                   torch.full((2,), 1e15, **_F64), 2),
+    # rising towards a hard bound, one chain starting on it
+    "hard_bound": (lambda xs: -(xs[:, 0] + 2.0 * xs[:, 1]),
+                   torch.tensor([[0.0, 0.0], [0.0, 2.0], [1.0, 1.0]],
+                                **_F64),
+                   torch.full((2,), 0.5, **_F64), torch.zeros(2, **_F64),
+                   torch.full((2,), 5.0, **_F64), 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_trip_sampler_is_the_per_chain_loop(monkeypatch, case):
+    """`slice_sample_chains` (the plain loop on the CPU) keeps, bit for bit,
+    the states a plain per-chain loop reaches on the same pre-drawn
+    uniforms, with the log density at each, whatever the rows a chain a
+    trip; an update takes as many trips as its slowest chain needs with
+    rows/2 stepping-out and ``rows`` shrinking steps a trip."""
+    logp, x0s, widths, lb, ub, n_sweeps = SLICE_CASES[case]
+    if logp is None:
+        logp = _spike_at(x0s)
+    C, D = x0s.shape
+    n = n_sweeps * D
+    drawn = SliceChains(torch.Generator().manual_seed(7), logp, x0s, widths,
+                        lb, ub, n)
+    want, steps = _per_chain_slice(logp, x0s, widths, lb, ub, n_sweeps,
+                                   drawn.log_v, drawn.r, drawn.u)
+    for rows in (2, 4, 6):
+        monkeypatch.setattr(slice_mod, "ROWS", rows)
+        got, lps = slice_sample_chains(torch.Generator().manual_seed(7),
+                                       logp, x0s, widths, lb, ub,
+                                       n_keep=n_sweeps, burn=0, thin=1,
+                                       n_keep_max=n_sweeps)
+        assert torch.equal(got, want), rows
+        assert torch.equal(lps, logp(got.reshape(-1, D)).reshape(
+            C, n_sweeps))
+        ch = SliceChains(torch.Generator().manual_seed(7), logp, x0s,
+                         widths, lb, ub, n)
+        for _ in range(n):
+            ch.coordinate()
+        per_chain = (-(-steps[0] // (rows // 2)) - (-steps[1] // rows))
+        assert ch.counts == per_chain.amax(0).tolist(), rows
+    if case == "stepout_cap":
+        assert steps[0].unique().tolist() == [16]
+    elif case == "shrink_cap":
+        assert steps[1].unique().tolist() == [64]
+        assert torch.equal(got, x0s[:, None, :].expand_as(got))
+    elif case == "hard_bound":
+        assert bool((got >= lb).all()) and bool((got[:, :, 0] > 0).any())
+
+
+def _no_host_reads(monkeypatch):
+    """Make every way of reading a tensor on the host raise."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a host read")
+    for name in ("__bool__", "__float__", "__int__", "__index__", "item",
+                 "tolist", "nonzero", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, boom)
+    monkeypatch.setattr(torch, "nonzero", boom)
+
+
+def _gp_log_posterior(intmean=0, n=24, nb=32, **cfg_kw):
+    """A GP log posterior as GP training samples it (in bounds, finite, else
+    -inf), on a padded D=2 training set, and hyperparameter rows: the
+    prior's starting point jittered, and a last row whose system matrix is
+    not positive definite (every point perfectly correlated, no noise).
+    ``cfg_kw`` sets more of the `GPConfig`."""
+    from vbmc_tpu_torch.gp.fit import assemble_hyp_prior
+    from vbmc_tpu_torch.utils.math import pad_to as tpad
+
+    rng = np.random.default_rng(11)
+    D = 2
+    cfg = TGPConfig(D=D, intmean=intmean, **cfg_kw)
+    X = rng.uniform(-2, 2, (n, D))
+    y = -0.5 * np.sum(X ** 2, 1) + 0.05 * rng.standard_normal(n)
+    prior, x0 = assemble_hyp_prior(cfg, X, y, np.full(D, -2.0),
+                                   np.full(D, 2.0), TrainOptions())
+    Xp = torch.tensor(tpad(X, nb))
+    yp = torch.tensor(tpad(y, nb))
+    s2 = torch.zeros(nb, dtype=torch.float64)
+    mask = torch.arange(nb) < n
+    h = torch.tensor(x0)[None].repeat(5, 1)
+    h[:4] += 0.05 * torch.tensor(rng.standard_normal((4, cfg.nhyp)))
+    h[4, :D] = 12.0               # length scales far beyond the data
+    h[4, D] = 8.0                 # a large signal
+    h[4, cfg.ncov] = -30.0        # no noise
+
+    def logpdf(hh):
+        lp = tcore.gp_log_posterior(cfg, prior, hh, Xp, yp, s2, mask)
+        inside = ((hh >= prior.lb) & (hh <= prior.ub)).all(-1)
+        return torch.where(inside & torch.isfinite(lp), lp, -torch.inf)
+
+    return cfg, prior, Xp, yp, s2, mask, h, logpdf
+
+
+@pytest.mark.parametrize("intmean", [0, 2])
+def test_log_posterior_without_gradients_is_the_autograd_one(monkeypatch,
+                                                            intmean):
+    """Without gradients the marginal likelihood replaces a failed factor
+    on the device, with no host read; every row's value is the one the
+    path that autograd takes gives, a failed one -inf."""
+    cfg, prior, X, y, s2, mask, h, _ = _gp_log_posterior(intmean)
+    hg = h.clone().requires_grad_(True)
+    want = tcore.gp_log_posterior(cfg, prior, hg, X, y, s2, mask).detach()
+    L, info = torch.linalg.cholesky_ex(tcore._system_matrix(
+        cfg, h, X, y, None, mask)[0])
+    assert (info[:4] == 0).all() and info[4] > 0
+    assert torch.isfinite(want[:4]).all() and want[4] == -torch.inf
+    with monkeypatch.context() as mp, torch.no_grad():
+        _no_host_reads(mp)
+        got = tcore.gp_log_posterior(cfg, prior, h, X, y, s2, mask)
+    assert torch.equal(got, want)
+
+
+def _trips_without_host_reads(monkeypatch, **cfg_kw):
+    cfg, prior, X, y, s2, mask, h, logpdf = _gp_log_posterior(**cfg_kw)
+    starts = torch.minimum(torch.maximum(h[:4], prior.lb), prior.ub)
+    ch = SliceChains(torch.Generator().manual_seed(0), logpdf, starts,
+                     torch.full((cfg.nhyp,), 0.3, dtype=torch.float64),
+                     prior.lb, prior.ub, 2 * cfg.nhyp)
+    with monkeypatch.context() as mp, torch.no_grad():
+        _no_host_reads(mp)
+        for _ in range(cfg.nhyp + 3):
+            ch.begin()
+            for _ in range(4):
+                ch.trip()
+    assert int(ch.k) >= 1 and torch.isfinite(ch.lp).all()
+
+
+def test_a_trip_reads_nothing_on_the_host(monkeypatch):
+    """The start of an update and a trip of the slice chains on GP
+    training's log density make no host read: on the card they are what
+    the graph records."""
+    _trips_without_host_reads(monkeypatch)
+
+
+# The GP configurations, besides the negquad mean, whose training the slice
+# sampler runs (nhyp <= 20): each integrated mean, an output warp, output-
+# dependent noise and a fitted user-noise scale.
+GP_SLICE_VARIANTS = {"intmean1": dict(intmean=1), "intmean2": dict(intmean=2),
+                     "intmean3": dict(intmean=3), "outwarp": dict(outwarp=1),
+                     "output_noise": dict(output_noise=1),
+                     "user_noise2": dict(user_noise=2)}
+
+
+@pytest.mark.parametrize("variant", sorted(GP_SLICE_VARIANTS))
+def test_a_trip_reads_nothing_on_the_host_in_each_gp_variant(monkeypatch,
+                                                             variant):
+    """As above, for every other GP configuration the slice sampler
+    trains."""
+    _trips_without_host_reads(monkeypatch, **GP_SLICE_VARIANTS[variant])
 
 
 def test_ensemble_final_samples_gaussian():

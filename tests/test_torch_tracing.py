@@ -178,3 +178,28 @@ def test_the_benchmark_readers_read_the_spans(short_run):
         v = mod.read(run)
         assert v is not None and math.isfinite(v) and v > 0, path
         assert mod.read(dict(run, timers={})) is None
+
+
+@pytest.mark.parametrize("sampler", ["gp_train.sample",
+                                     "active_sampling.full_update.sample"])
+def test_the_slice_samplers_capture_and_tail_readers(short_run, sampler):
+    """The slice sampler opens "capture" inside its caller's "sample" span
+    on every call (on the CPU: the randoms drawn up front) and "tail" only
+    around replays on the card. Its readers: the capture's seconds a
+    point; the tail's, 0.0 where the capture ran and the tail never did,
+    and nothing where the capture never ran (a program without them)."""
+    res, infos, _, _ = short_run
+    assert "gp_train.sample.capture" in res.timers
+    assert not any(p.endswith(".tail") for p in res.timers)
+    capture = brun.load_module(ROOT / "benchmark" / "metrics"
+                               / f"{sampler}.capture.s_per_point.py")
+    tail = brun.load_module(ROOT / "benchmark" / "metrics"
+                            / f"{sampler}.tail.s_per_point.py")
+    timers = {f"{sampler}.capture": 0.25, f"{sampler}": 2.0}
+    run = dict(timers=timers, points=5)
+    assert capture.read(run) == pytest.approx(0.05)
+    assert tail.read(run) == 0.0
+    run["timers"][f"{sampler}.tail"] = 1.5
+    assert tail.read(run) == pytest.approx(0.3)
+    for mod in (capture, tail):
+        assert mod.read(dict(run, timers={f"{sampler}": 2.0})) is None

@@ -2,6 +2,7 @@
 twin of the JAX package's `bench_kernels.py`.
 
     python -m vbmc_tpu_torch.bench_kernels [N] [S] [K] [M] [--device cpu]
+    python -m vbmc_tpu_torch.bench_kernels --slice [--device cpu]
 
 N training points, S hyperparameter samples, K VP components, M candidates
 (defaults 256, 16, 16, 8192) at D=6, float64 (the main path's dtype). The
@@ -28,6 +29,19 @@ and fields (progress and a readable summary go to stderr):
   on -nlZ) and ``ensemble_sweep_nlz`` (`samplers.ensemble.
   ensemble_slice_final` for one step on -nlZ), each with the FLOP count
   `bench_kernels.py` gives it.
+
+``--slice`` prints the probe and, in place of those rows, one
+``kernel_slice_sweep_nlz_c<C>_n<N>_ms`` row a shape of `SLICE_SHAPES` (the
+slice sampler of GP training and of the full update as the benchmark's
+cells run it): one sweep of C chains over the nhyp hyperparameters of a GP
+at D with the negquad mean on N points, as the program runs it (on the
+card: drawn, captured once, replayed), with the trips a coordinate update
+takes in the plain loop for each number of rows a chain a trip of
+`SLICE_ROWS` (``trips_by_rows``: median, 90th percentile, mean, histogram
+over `SLICE_STAT_SWEEPS` sweeps). On the card also the replays and flag
+reads an update takes as the program runs it, and by rows a chain the
+device time of one trip (CUDA events over replays) and the wall ms of an
+update, capture included.
 
 Each row carries ``ms_pipelined`` (R distinct calls, input i perturbed by
 i * 1e-12, between two CUDA events; R grows until the window is at least
@@ -69,9 +83,12 @@ from vbmc_tpu_torch.active_is import (build_is_state_core,
 from vbmc_tpu_torch.bench import device_info
 from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.core import neg_log_marginal_likelihood
+from vbmc_tpu_torch.gp.fit import TrainOptions, _objective, assemble_hyp_prior
 from vbmc_tpu_torch.gp.gp import build_gp, gp_from_host
+from vbmc_tpu_torch.optim import minimize_lbfgs_bounded
+from vbmc_tpu_torch.samplers import slice as slice_mod
 from vbmc_tpu_torch.samplers.ensemble import ensemble_slice_final
-from vbmc_tpu_torch.samplers.slice import slice_sample_chains
+from vbmc_tpu_torch.samplers.slice import SliceChains, slice_sample_chains
 from vbmc_tpu_torch.transforms import create_trinfo
 from vbmc_tpu_torch.vp import make_vp
 
@@ -90,6 +107,13 @@ PROBE_N = 4096
 WINDOW_S = 0.2
 MAX_REPS = 4096
 SINGLE_REPS = 5
+# (C chains, N training points, D) of the slice sampler in the benchmark's
+# cells: the noisy cell's GP training and full update (N about 210 in the
+# 256 bucket, 12 hyperparameters) and GP training from a fresh start at D=2
+# (N 10 to 60 in the 64 bucket, 9 hyperparameters).
+SLICE_SHAPES = ((8, 256, 3), (8, 64, 2))
+SLICE_STAT_SWEEPS = 4
+SLICE_ROWS = (2, 4, 8)
 
 
 class BrokenTimer(RuntimeError):
@@ -504,6 +528,166 @@ def run(N: int, S: int, K: int, M: int, device="cuda",
     return out
 
 
+@dataclasses.dataclass
+class SliceInputs:
+    C: int
+    N: int
+    cfg: GPConfig
+    logpdf: Callable          # GP training's log density of the rows
+    starts: torch.Tensor      # (C, nhyp)
+    widths: torch.Tensor      # (nhyp,)
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+
+def slice_inputs(C: int, N: int, D: int, device) -> SliceInputs:
+    """GP training's log density (`gp.fit.map_sample_assemble_core`'s) on
+    N points of a noisy quadratic at D (negquad mean), with C chain starts
+    scattered around its MAP by a tenth of the plausible box, as GP
+    training scatters them."""
+    rng = np.random.default_rng(0)
+    cfg = GPConfig(D=D)
+    X = rng.uniform(-2, 2, (N, D))
+    y = -0.5 * np.sum(X ** 2, 1) + 0.1 * rng.standard_normal(N)
+    prior, x0 = assemble_hyp_prior(cfg, X, y, np.full(D, -2.0),
+                                   np.full(D, 2.0), TrainOptions(),
+                                   device=device, dtype=DTYPE)
+
+    def t(v):
+        return torch.as_tensor(v, device=device, dtype=DTYPE)
+
+    Xt, yt, s2 = t(X), t(y), t(np.zeros(N))
+    mask = torch.ones(N, dtype=torch.bool, device=device)
+    hyp_map, _ = minimize_lbfgs_bounded(
+        _objective(cfg, prior, Xt, yt, s2, mask), t(x0)[None],
+        prior.lb, prior.ub, maxiter=80)
+    box = torch.where(torch.isfinite(prior.pub - prior.plb),
+                      prior.pub - prior.plb, prior.ub - prior.lb)
+    widths = box.clamp_min(1e-3)
+    starts = hyp_map.detach() + 0.1 * widths * t(
+        rng.standard_normal((C, cfg.nhyp)))
+    starts = torch.minimum(torch.maximum(starts, prior.lb + 1e-10),
+                           prior.ub - 1e-10)
+    starts[0] = hyp_map[0].detach()
+
+    def logpdf(h):
+        lp = -_objective(cfg, prior, Xt, yt, s2, mask)(h)
+        inside = ((h >= prior.lb) & (h <= prior.ub)).all(-1)
+        return torch.where(inside & (lp > -1e12), lp, -torch.inf)
+
+    return SliceInputs(C=C, N=N, cfg=cfg, logpdf=logpdf, starts=starts,
+                       widths=widths, lb=prior.lb, ub=prior.ub)
+
+
+def slice_counts(si: SliceInputs, graph: bool, sweeps: int,
+                 rows: int = slice_mod.ROWS, spare: int = 0):
+    """Per coordinate update of ``sweeps`` sweeps from one seed, with
+    ``rows`` rows a chain a trip: the trips of the plain loop, or on the
+    card with ``graph`` the replays of the captured trip; and the chains,
+    with randoms for ``spare`` updates more."""
+    n = sweeps * si.cfg.nhyp
+    with torch.no_grad():
+        ch = SliceChains(torch.Generator(device=si.starts.device)
+                         .manual_seed(1), si.logpdf, si.starts, si.widths,
+                         si.lb, si.ub, n + spare)
+        ch.rows = rows
+        if graph:
+            ch.capture()
+        for _ in range(n):
+            ch.coordinate()
+    return ch.counts, ch
+
+
+def trip_device_ms(si: SliceInputs, rows: int, reps: int = 20) -> float:
+    """Device ms of one trip with ``rows`` rows a chain: CUDA events over
+    ``reps`` back-to-back replays of the captured trip (each starts at
+    most one update)."""
+    _, ch = slice_counts(si, True, 1, rows, spare=reps)
+    clock = Clock(si.starts.device)
+    return clock.seconds(lambda: [ch._graph.replay()
+                                  for _ in range(reps)]) * 1e3 / reps
+
+
+def _trip_stats(counts) -> dict:
+    return dict(median=statistics.median(counts),
+                p90=statistics.quantiles(counts, n=10)[-1],
+                mean=statistics.mean(counts),
+                hist={str(k): counts.count(k) for k in sorted(set(counts))})
+
+
+def slice_rows(probe: dict, info: dict, device,
+               shapes=SLICE_SHAPES, window_s: float = WINDOW_S) -> list:
+    """The ``kernel_slice_sweep_nlz_c<C>_n<N>_ms`` rows."""
+    device = torch.device(device)
+    clock = Clock(device)
+    rows = slice_mod.ROWS
+    out = []
+    for C, N, D in shapes:
+        si = slice_inputs(C, N, D, device)
+        nhyp = si.cfg.nhyp
+        n = SLICE_STAT_SWEEPS * nhyp
+        by_rows = {}
+        for b in SLICE_ROWS:
+            plain, _ = slice_counts(si, False, SLICE_STAT_SWEEPS, b)
+            by_rows[str(b)] = _trip_stats(plain)
+        gen = torch.Generator(device=device)
+
+        def sweep(i):
+            gen.manual_seed(1)
+            with torch.no_grad():
+                return slice_sample_chains(gen, si.logpdf, si.starts
+                                           + i * 1e-12, si.widths, si.lb,
+                                           si.ub, n_keep=1, burn=0, thin=1,
+                                           n_keep_max=1)
+
+        mean_trips = by_rows[str(rows)]["mean"]
+        row = Row(f"slice_sweep_nlz_c{C}_n{N}", sweep,
+                  nhyp * mean_trips * rows * C * (N ** 3 / 3))
+        inp = Inputs(cfg=si.cfg, N=N, S=C, K=0, M=0, hyps=None, gp=None,
+                     vp=None, Xs=si.starts, state=None, ais=None)
+        r = time_row(row, inp, clock, probe, info, window_s)
+        r.update(C=C, D=D, nhyp=nhyp, rows_per_chain=rows,
+                 trips_by_rows=by_rows, replays_per_update=None,
+                 flag_reads_per_update=None, trip_device_ms_by_rows=None,
+                 update_ms_by_rows=None)
+        if clock.cuda:
+            replays, _ = slice_counts(si, True, SLICE_STAT_SWEEPS, rows)
+
+            def update_ms(b):
+                return clock.seconds(lambda: slice_counts(
+                    si, True, SLICE_STAT_SWEEPS, b)) * 1e3 / n
+
+            r.update(replays_per_update=statistics.mean(replays),
+                     flag_reads_per_update=statistics.mean(replays),
+                     trip_device_ms_by_rows={
+                         str(b): trip_device_ms(si, b) for b in SLICE_ROWS},
+                     update_ms_by_rows={str(b): update_ms(b)
+                                        for b in SLICE_ROWS})
+        _log(f"# {row.name}: trips an update by rows a chain {by_rows}; "
+             f"replays an update {r['replays_per_update']}; a trip "
+             f"{r['trip_device_ms_by_rows']} ms on the device; an update "
+             f"{r['update_ms_by_rows']} ms by rows; a sweep "
+             f"{r['ms_single']:.2f} ms single, {r['launches']} kernels, "
+             f"{r['dtoh_copies']} copies to the host")
+        out.append(r)
+    return out
+
+
+def run_slice(device="cuda", shapes=SLICE_SHAPES, window_s=WINDOW_S,
+              emit=_emit) -> list:
+    """The probe and the slice sampler's rows, each passed to ``emit``."""
+    device = torch.device(device)
+    info = device_info(device.type)
+    probe = device_probe(info, device)
+    emit(probe)
+    check_probe(probe)
+    out = [probe]
+    for r in slice_rows(probe, info, device, shapes, window_s):
+        emit(r)
+        out.append(r)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m vbmc_tpu_torch.bench_kernels",
@@ -512,6 +696,8 @@ def main(argv=None) -> int:
     for name, default in zip("NSKM", DEFAULTS):
         parser.add_argument(name, type=int, nargs="?", default=default)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--slice", action="store_true",
+                        help="the slice sampler's rows at SLICE_SHAPES only")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("python -m vbmc_tpu_torch.bench_kernels runs on the card "
@@ -519,7 +705,10 @@ def main(argv=None) -> int:
               "is false", file=sys.stderr)
         return 2
     try:
-        run(args.N, args.S, args.K, args.M, args.device)
+        if args.slice:
+            run_slice(args.device)
+        else:
+            run(args.N, args.S, args.K, args.M, args.device)
     except BrokenTimer as e:
         print(f"bench_kernels: {e}", file=sys.stderr)
         return 1

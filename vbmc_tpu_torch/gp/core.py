@@ -109,6 +109,25 @@ def robust_cholesky(B: torch.Tensor):
     return L, first_ok
 
 
+def _factor_or_identity(B):
+    """Lower Cholesky factors of the batch B (Bt, n, n) and which of them
+    succeeded (Bt,); a failed factor is the identity. Where autograd can
+    reach B, a host read decides whether any failed, and those are
+    factorised again on an identity so that no NaN reaches the backward
+    pass; elsewhere the failed factors are replaced on the device, with the
+    same values and no host read."""
+    L, info = torch.linalg.cholesky_ex(B)
+    ok = _chol_ok(L.detach(), info)
+    if not B.requires_grad:
+        eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+        return torch.where(ok[:, None, None], L, eye), ok
+    if not bool(ok.all()):
+        eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+        L = torch.linalg.cholesky_ex(
+            torch.where(ok[:, None, None], B, eye))[0]
+    return L, ok
+
+
 def _masked_basis(cfg: GPConfig, X, m):
     """The integrated mean's basis at the training inputs, zero on padded
     rows: (N, Nb)."""
@@ -152,20 +171,18 @@ def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y, s2,
     """Masked negative log marginal likelihood (B,), differentiable in hyp.
     Where the Cholesky fails the value is +inf and the gradient 0 (the
     factorisation is redone on an identity so no NaN reaches autograd).
-    Under an output warp the likelihood is that of the warped observations
-    plus the Jacobian of the change of variables (`gplite_core.m:196-198`);
-    an integrated mean's coefficients are marginalised exactly under a
-    vague prior (`gplite_core.m:133-189`)."""
+    Where no gradient can reach the factorisation nothing is redone and
+    nothing waits for the device (`_factor_or_identity`), so a sampler's
+    step can be captured as a CUDA graph. Under an output warp the
+    likelihood is that of the warped observations plus the Jacobian of the
+    change of variables (`gplite_core.m:196-198`); an integrated mean's
+    coefficients are marginalised exactly under a vague prior
+    (`gplite_core.m:133-189`)."""
     t, s2w, log_jac = warped_observations(cfg, hyp, y, s2, mask)
     B, _ = _system_matrix(cfg, hyp, X, y, s2w, mask)
     m = mask.to(X.dtype)
     r = (t - mean_function(cfg, hyp[:, cfg.sl_mean], X)) * m
-    L, info = torch.linalg.cholesky_ex(B)
-    ok = _chol_ok(L.detach(), info)
-    if not bool(ok.all()):
-        eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
-        L = torch.linalg.cholesky_ex(
-            torch.where(ok[:, None, None], B, eye))[0]
+    L, ok = _factor_or_identity(B)
     a = torch.cholesky_solve(r[..., None], L)[..., 0]
     nlZ = (0.5 * (r * a).sum(-1)
            + (torch.log(torch.diagonal(L, dim1=-2, dim2=-1)) * m).sum(-1)
@@ -176,13 +193,8 @@ def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y, s2,
         H = _masked_basis(cfg, X, m)
         A = H.T @ torch.cholesky_solve(H.expand(B.shape[0], -1, -1), L)
         u = (H.T @ a[..., None])
-        LA, info_a = torch.linalg.cholesky_ex(A)
-        ok_a = _chol_ok(LA.detach(), info_a)
-        if not bool(ok_a.all()):
-            eye_b = torch.eye(cfg.nint, dtype=B.dtype, device=B.device)
-            LA = torch.linalg.cholesky_ex(
-                torch.where(ok_a[:, None, None], A, eye_b))[0]
-            ok = ok & ok_a
+        LA, ok_a = _factor_or_identity(A)
+        ok = ok & ok_a
         w = torch.linalg.solve_triangular(LA, u, upper=False)[..., 0]
         nlZ = (nlZ - 0.5 * (w * w).sum(-1)
                + torch.log(torch.diagonal(LA, dim1=-2, dim2=-1)).sum(-1)

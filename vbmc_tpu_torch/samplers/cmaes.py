@@ -10,14 +10,12 @@ in place (the mean, step size, covariance, evolution paths, best point and
 the generation index) and never waits for the device: the step size and
 the hsig switch are 0-d tensors, the D x D eigendecomposition is
 `kernels.sym_eig`, and the normals of every generation are drawn up front.
-On CUDA tensors generation 0 runs eagerly on a side stream (also the
-warm-up that cuBLAS and the allocator need before a capture), generation 1
-is captured as a CUDA graph, and the graph is replayed for the other
-n_gen - 1 generations: one launch a generation in place of a few hundred,
-and no host sync until the result is read. CPU tensors run the same
-function n_gen times. A host sync inside the objective makes the capture
-raise. The kernels' launch counters (`kernels.KERNELS`) count what a graph
-launches at each replay, not at its capture, which runs nothing.
+On CUDA tensors generation 0 runs eagerly on a side stream, generation 1
+is captured as a CUDA graph (`graphs.Graph`), and the graph is replayed for
+the other n_gen - 1 generations: one launch a generation in place of a few
+hundred, and no host sync until the result is read. CPU tensors run the
+same function n_gen times. A host sync inside the objective makes the
+capture raise.
 """
 
 from __future__ import annotations
@@ -28,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from vbmc_tpu_torch import kernels
+from vbmc_tpu_torch.graphs import Graph
 from vbmc_tpu_torch.kernels import sym_eig
 from vbmc_tpu_torch.tracing import span
 
@@ -39,22 +37,6 @@ class CMAESResult:
     f_best: torch.Tensor
     x_mean: torch.Tensor
     n_evals: int
-
-
-# One side stream and one graph memory pool a device, for the process. The
-# last graph is kept alive so that the pool lives from call to call: each
-# capture reuses the blocks the previous one freed, and memory does not grow
-# from point to point.
-_CAPTURE: dict = {}
-
-
-def _capture_slot(device: torch.device) -> dict:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _CAPTURE:
-        _CAPTURE[idx] = dict(stream=torch.cuda.Stream(idx),
-                             pool=torch.cuda.graph_pool_handle(), graph=None)
-    return _CAPTURE[idx]
 
 
 class CMAES:
@@ -123,7 +105,6 @@ class CMAES:
                                  device=dev) if f0 is None \
             else f0.to(dev, dt).reshape(()).clone()
         self._graph = None
-        self._graph_launches = None
 
     def generation(self):
         """Generation k: sample, evaluate, update every state tensor in
@@ -171,31 +152,11 @@ class CMAES:
     def start(self):
         """Generation 0. On CUDA with more generations to come it runs on
         the device's side stream, then generation 1 is captured there as a
-        graph (recorded, not run) and instantiated."""
+        graph (recorded, not run) and instantiated (`graphs.Graph`)."""
         if self.x0.device.type != "cuda" or self.n_gen == 1:
             self.generation()
             return
-        slot = _capture_slot(self.x0.device)
-        side = slot["stream"]
-        main = torch.cuda.current_stream(self.x0.device)
-        side.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        # capture_begin and capture_end, not the torch.cuda.graph context:
-        # that one synchronises the device and empties the allocator's cache
-        # on entry, which every call would pay for
-        with torch.cuda.stream(side):
-            self.generation()
-            before = kernels.launch_counts()
-            graph.capture_begin(pool=slot["pool"])
-            try:
-                self.generation()
-            finally:
-                graph.capture_end()
-        main.wait_stream(side)
-        slot["graph"] = self._graph = graph
-        # the capture launched nothing: each replay launches what it recorded
-        self._graph_launches = kernels.launch_counts(since=before)
-        kernels.add_launches(self._graph_launches, -1)
+        self._graph = Graph(self.generation, self.x0.device)
 
     def finish(self) -> CMAESResult:
         """Generations 1 to n_gen - 1 (the graph's replays on CUDA), then
@@ -205,8 +166,6 @@ class CMAES:
                 self.generation()
             else:
                 self._graph.replay()
-        if self._graph is not None:
-            kernels.add_launches(self._graph_launches, self.n_gen - 1)
         return self.result()
 
     def result(self) -> CMAESResult:
