@@ -794,7 +794,7 @@ def compare_cmaes_capture(torch, name, f_batch, x0, insigma, lb, ub,
 def _refine_inputs(torch, cfg, gp, vp, Xs, f_batch):
     """What active sampling hands CMA-ES: the winner of ``f_batch`` over
     the candidates, the VP's per-dimension scales and the candidates' box
-    (`active_sample._argmin_and_refine`)."""
+    (`active_sample._propose_point`)."""
     from vbmc_tpu_torch.vp import vp_moments
 
     with torch.no_grad():

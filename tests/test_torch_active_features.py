@@ -254,8 +254,7 @@ def test_integer_vars_round_the_acquired_points(acq_name):
     opt = _small(integer_vars=(0,)).resolve(2)
     n0 = logger.Xn
     gp2, _ = tas.active_sample(torch.Generator().manual_seed(0), cfg, logger,
-                               4, vp, gp, sb, opt, acq_name=acq_name,
-                               tol_gp_var=1e-4)
+                               4, vp, gp, sb, opt, acq_name=acq_name)
     X_new = logger.X_orig[n0:logger.Xn]
     assert X_new.shape[0] == 4
     np.testing.assert_allclose(X_new[:, 0], np.round(X_new[:, 0]), atol=1e-6)
@@ -279,14 +278,13 @@ def test_host_path_options_run(opts, monkeypatch):
     cache = np.random.default_rng(2).uniform(-1, 1, (300, 2))
     tas.active_sample(torch.Generator().manual_seed(0), cfg, logger, 3, vp,
                       gp, sb, _small(**opts).resolve(2),
-                      acq_name="prospective", tol_gp_var=1e-4,
-                      search_cache=cache)
+                      acq_name="prospective", search_cache=cache)
     assert logger.Xn == n0 + 3 and len(calls) == 3
     assert np.all(np.abs(logger.X_orig[n0:logger.Xn]) < 10.0)
     calls.clear()
     tas.active_sample(torch.Generator().manual_seed(0), cfg, logger, 2, vp,
                       gp, sb, _small().resolve(2), acq_name="prospective",
-                      tol_gp_var=1e-4, search_cache=cache)
+                      search_cache=cache)
     assert calls == []
 
 
@@ -318,7 +316,7 @@ def test_repeated_observations_on_the_host_path(monkeypatch):
                      repeated_acq_discount=discount,
                      specify_target_noise=True).resolve(2)
         tas.active_sample(torch.Generator().manual_seed(0), cfg, logger, 3,
-                          vp, gp, sb, opt, acq_name="viqr", tol_gp_var=1e-4,
+                          vp, gp, sb, opt, acq_name="viqr",
                           optim_state=state)
 
     before = kernels.viqr_acq.launches

@@ -13,8 +13,11 @@ from vbmc_tpu_torch import VBMCOptions
 from vbmc_tpu_torch.elbo import gplogjoint
 from vbmc_tpu_torch.function_logger import FunctionLogger
 from vbmc_tpu_torch.gp.config import FIXED_CENTER_MEANFUNS, GPConfig
-from vbmc_tpu_torch.gp.fit import TrainOptions, train_gp
+from vbmc_tpu_torch.gp import fit
+from vbmc_tpu_torch.gp.fit import TrainOptions, sampler_widths, train_gp
+from vbmc_tpu_torch.gp.gp import HypPrior
 from vbmc_tpu_torch.gp.means import fix_center_from_data
+from vbmc_tpu_torch import quick_update
 from vbmc_tpu_torch.quick_update import QuickUpdater
 from vbmc_tpu_torch.transforms import create_trinfo
 from vbmc_tpu_torch.vp import make_vp
@@ -131,3 +134,63 @@ def test_quick_updater_with_other_gp_families(cfg_kw):
     assert bool(torch.isfinite(gls).all()) and bool((gls > 0).all())
     assert np.isclose(float(vp2.w.sum()), 1.0, atol=1e-5)
     assert bool(torch.isfinite(vp2.mu).all()) and bool((vp2.sigma > 0).all())
+
+
+def _t(v):
+    return torch.tensor(v, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("running,escalated,want", [
+    (None, False, [2.0, 8.0, 1.0]),
+    ([0.5, 20.0, 0.1], False, [0.5, 8.0, 0.1]),
+    ([30.0, 20.0, 50.0], True, [10.0, 8.0, 50.0]),
+], ids=["no_running_widths", "inside_the_cap", "escalated_infinite_range"])
+def test_sampler_widths(running, escalated, want):
+    """The sampler-width rule on a prior whose second plausible range is
+    infinite (the host box puts the hard bounds there) and whose third
+    hard range is infinite: the default widths, capped by the running
+    widths; escalated, the cap widens to the hard range, and where that is
+    infinite the running width stands."""
+    prior = HypPrior(mu=_t([0.0] * 3), sigma=_t([1.0] * 3),
+                     df=_t([3.0] * 3), lb=_t([-5.0, -4.0, -np.inf]),
+                     ub=_t([5.0, 4.0, np.inf]),
+                     plb=_t([-1.0, -np.inf, -0.5]),
+                     pub=_t([1.0, np.inf, 0.5]))
+    plb, pub = prior.host_box[2:]
+    np.testing.assert_array_equal(plb, [-1.0, -4.0, -0.5])
+    np.testing.assert_array_equal(pub, [1.0, 4.0, 0.5])
+    opts = TrainOptions(widths=None if running is None else np.array(running),
+                        widths_escalated=escalated)
+    got = sampler_widths(prior, opts, np.maximum(pub - plb, 1e-3))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_train_gp_and_the_full_update_sample_with_the_width_rule(
+        monkeypatch):
+    """Both GP trainings hand their sampler the widths of
+    `sampler_widths`, here capped by running widths of 0.05."""
+    cfg, opts, topts, logger, gp, vp = _setup()
+    ruled, seen = [], []
+
+    def rule(prior, o, default):
+        ruled.append(sampler_widths(prior, o, default))
+        return ruled[-1]
+
+    for mod in (fit, quick_update):
+        core = mod.map_sample_assemble_core
+        monkeypatch.setattr(mod, "sampler_widths", rule)
+        monkeypatch.setattr(mod, "map_sample_assemble_core",
+                            lambda *a, _core=core, **k:
+                            seen.append(a[4]) or _core(*a, **k))
+    topts = dataclasses.replace(topts, widths=np.full(cfg.nhyp, 0.05))
+    X, y, s2 = logger.training_data()
+    train_gp(torch.Generator().manual_seed(0), cfg, X, y, s2,
+             np.full(D, -3.0), np.full(D, 3.0), topts, host_seed=1,
+             device="cpu")
+    logger.evaluate(np.array([0.3, -0.2]))
+    _updater(cfg, opts, topts, do_gp=True, do_vp=False)(
+        torch.Generator().manual_seed(5), logger, gp, vp)
+    assert len(ruled) == len(seen) == 2
+    for w, s in zip(ruled, seen):
+        assert np.all(w <= 0.05)
+        np.testing.assert_array_equal(s.numpy(), w)

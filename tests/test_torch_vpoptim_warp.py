@@ -193,3 +193,37 @@ def test_host_helpers_match_jax():
     for a, b in zip(t_wmc(torch.tensor(X), torch.tensor(w)),
                     j_wmc(jnp.asarray(X), jnp.asarray(w))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12)
+
+
+def test_a_warp_the_elbo_check_rejects_is_undone():
+    """A run that makes a rotoscale warp and, with a required ELBO gain no
+    retraining can give (``warp_tol_improvement``), undoes every one: the
+    run comes back in the space it started in, with the transform of
+    before the warp (no rotation, unit scale), and still passes the e2e
+    gate on its correlated Gaussian."""
+    from vbmc_tpu_torch import vbmc
+    from vbmc_tpu_torch.vp import vp_moments
+
+    mu = np.array([0.5, -0.3])
+    cov = np.array([[1.0, 0.9], [0.9, 1.0]])
+    prec = np.linalg.inv(cov)
+    lnz = np.log(2 * np.pi) + 0.5 * np.log(np.linalg.det(cov))
+
+    def logp(x):
+        return float(-0.5 * (x - mu) @ prec @ (x - mu))
+
+    res = vbmc(logp, x0=np.zeros(D), plb=np.full(D, -3.0),
+               pub=np.full(D, 3.0),
+               options=VBMCOptions(display="off", max_fun_evals=25, seed=3,
+                                   ns_search=512, min_final_components=5,
+                                   warmup=False, warp_every_iters=1,
+                                   warp_min_k=2, warp_tol_improvement=1e3),
+               device="cpu")
+    assert res.warps_undone == res.warps_made >= 1
+    for ti in (res.vp.trinfo, res.vp_train.trinfo, res.logger.trinfo):
+        assert torch.equal(ti.R_mat, torch.eye(D, dtype=ti.R_mat.dtype))
+        assert torch.equal(ti.scale, torch.ones(D, dtype=ti.scale.dtype))
+    gen = torch.Generator().manual_seed(0)
+    mean, _ = vp_moments(res.vp, orig_flag=True, n_samples=10 ** 5, gen=gen)
+    assert abs(res.elbo - lnz) < 0.5, (res.elbo, lnz)
+    assert np.sqrt(np.mean((mean.numpy() - mu) ** 2)) < 0.5, mean

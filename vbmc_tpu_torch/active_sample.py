@@ -7,7 +7,7 @@ ones), CMA-ES refinement, target evaluation, and the GP refresh or, on
 noisy targets, the per-point full update.
 
 A point is proposed on one of two paths, as in the reference. The default
-search composition goes through `_propose_point` / `_propose_point_is`.
+search composition goes through `_propose_point`.
 A search cache, HPD draws, another optimiser, integer variables or
 repeated observations need steps on the host between the sweep and the
 evaluation, and go through `get_search_points` and the host path of
@@ -25,7 +25,7 @@ from vbmc_tpu_torch import elbo
 from vbmc_tpu_torch.tracing import span
 from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.fit import get_hpd
-from vbmc_tpu_torch.gp.gp import GP, build_gp
+from vbmc_tpu_torch.gp.gp import GP, build_gp, pad_training_data
 from vbmc_tpu_torch.gp.predict import gp_predict
 from vbmc_tpu_torch.function_logger import FunctionLogger
 from vbmc_tpu_torch.vp import VariationalPosterior, vp_rnd, vp_moments
@@ -264,86 +264,38 @@ def _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search: int, n_heavy: int,
     return torch.minimum(torch.maximum(Xs, sb_lb), sb_ub), cov_t
 
 
-def _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
-                       max_evals: int, popsize: int) -> np.ndarray:
-    """Sweep winner, refined by CMA-ES started at it with the VP's
-    per-dimension scales; the refined point is taken only if better.
-    Returns the chosen point on the host."""
-    acq_f = torch.where(torch.isfinite(acq), acq, torch.inf)
-    best = torch.argmin(acq_f)
-    x0, f0 = Xs[best], acq_f[best]
-    insigma = torch.sqrt(torch.diagonal(cov_t).clamp_min(1e-12))
-    res = cmaes_minimize(gen, f_batch, x0, insigma, torch.minimum(x0, sb_lb),
-                         torch.maximum(x0, sb_ub), max_evals=max_evals,
-                         popsize=popsize, f0=f0)
-    return to_np(res.x_best)
-
-
-def _propose_point(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
-                   sb_lb, sb_ub, n_search: int, n_heavy: int, n_mvn: int,
-                   n_box: int, max_evals: int, popsize: int,
-                   smooth: bool = False):
-    """One acquisition step: candidates -> sweep -> argmin -> CMA-ES.
-    Returns the chosen point on the host."""
-    with span("search"):
-        Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search,
-                                    n_heavy, n_mvn, n_box)
-    with span("sweep"):
-        acq = sweep_acquisition(cfg, name, Xs, vp, gp, state, smooth=smooth)
-
-    def f_batch(xs):
-        return evaluate_acquisition(cfg, name, xs, vp, gp, state,
-                                    smooth=smooth)
-
-    with span("refine"):
-        return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
-                                  max_evals, popsize)
-
-
-def _propose_point_is(cfg: GPConfig, name: str, gen, vp, gp, state: AcqState,
-                      sb_lb, sb_ub, n_search: int, n_heavy: int, n_mvn: int,
-                      n_box: int, n_is_vp: int, n_is_box: int,
-                      n_is_mcmc: int, mh_steps: int, fess_thresh: float,
-                      max_evals: int, popsize: int):
-    """One VIQR / IMIQR acquisition step: importance-sampling set ->
-    candidates -> sweep -> argmin -> CMA-ES on the plain evaluation. The
-    set is rebuilt for every point: the GP posterior changes as
-    evaluations accrue (`activesample_vbmc.m:208-211`). Returns the chosen
+def _propose_point(gen, vp, gp, sweep, f_batch, sb_lb, sb_ub, n_search: int,
+                   n_heavy: int, n_mvn: int, n_box: int, max_evals: int,
+                   popsize: int):
+    """One acquisition step: candidates -> ``sweep`` -> argmin -> CMA-ES on
+    ``f_batch``, started at the sweep's winner with the VP's per-dimension
+    scales, whose refined point is taken only if better. Returns the chosen
     point on the host."""
-    with span("is_set"):
-        ais = build_is_state_core(gen, cfg, name, vp, gp, n_is_vp, n_is_box,
-                                  n_is_mcmc, mh_steps=mh_steps,
-                                  fess_thresh=fess_thresh)
     with span("search"):
         Xs, cov_t = _gen_candidates(gen, vp, gp, sb_lb, sb_ub, n_search,
                                     n_heavy, n_mvn, n_box)
     with span("sweep"):
-        acq = sweep_is_acquisition(cfg, name, Xs, vp, gp, state, ais)
-
-    def f_batch(xs):
-        return evaluate_is_acquisition(cfg, name, xs, vp, gp, state, ais)
-
+        acq = sweep(Xs)
     with span("refine"):
-        return _argmin_and_refine(gen, Xs, acq, cov_t, sb_lb, sb_ub, f_batch,
-                                  max_evals, popsize)
+        acq_f = torch.where(torch.isfinite(acq), acq, torch.inf)
+        best = torch.argmin(acq_f)
+        x0, f0 = Xs[best], acq_f[best]
+        insigma = torch.sqrt(torch.diagonal(cov_t).clamp_min(1e-12))
+        res = cmaes_minimize(gen, f_batch, x0, insigma,
+                             torch.minimum(x0, sb_lb),
+                             torch.maximum(x0, sb_ub), max_evals=max_evals,
+                             popsize=popsize, f0=f0)
+        return to_np(res.x_best)
 
 
 def gp_reupdate(cfg: GPConfig, gp: GP, logger: FunctionLogger) -> GP:
     """Refresh the GP posterior on the current training data (with the
     logger's noise variances), keeping the hyperparameter samples
     (`misc/gpreupdate.m`)."""
-    dev, dt = gp.X.device, gp.X.dtype
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=dev, dtype=dt)
-
     with span("gp_update"):
-        X, y, s2 = logger.training_data()
-        n = X.shape[0]
-        nb = bucket_n(n)
-        return build_gp(cfg, t(pad_to(X, nb)), t(pad_to(y, nb)),
-                        t(np.zeros(nb) if s2 is None else pad_to(s2, nb)),
-                        torch.as_tensor(np.arange(nb) < n, device=dev),
+        return build_gp(cfg, *pad_training_data(*logger.training_data(),
+                                                device=gp.X.device,
+                                                dtype=gp.X.dtype),
                         gp.hyp, gp.hyp_mask)
 
 
@@ -376,21 +328,23 @@ def _var_log_joint(cfg: GPConfig, gp: GP, vp: VariationalPosterior):
 def active_sample(gen: torch.Generator, cfg: GPConfig,
                   logger: FunctionLogger, n_points: int,
                   vp: VariationalPosterior, gp: GP, sb: SearchBounds,
-                  options, *, acq_name: str, tol_gp_var: float,
-                  full_update: bool = False, quick_updater=None,
-                  fess_thresh: float = 1.0, optim_state=None,
+                  options, *, acq_name: str, quick_updater=None,
+                  delta_smoothing: Optional[np.ndarray] = None,
+                  optim_state=None,
                   search_cache: Optional[np.ndarray] = None):
     """Acquire ``n_points`` new evaluations; returns (gp, vp), the GP
     refreshed on the enlarged training set.
 
-    With ``full_update`` (noisy targets near the end of warm-up or on
-    unstable runs, `activesample_vbmc.m:46-76, 429-473`) the
-    ``quick_updater(gen, logger, gp, vp) -> (gp, vp, gls)`` re-trains the GP
-    hyperparameters and re-fits the VP after each acquired point, gated on
-    the fractional effective sample size when ``fess_thresh`` < 1;
-    otherwise the GP keeps its hyperparameters. ``optim_state`` carries the
-    streak of repeated observations of a noisy target; ``search_cache``
-    (transformed space) feeds the search set when
+    With a ``quick_updater(gen, logger, gp, vp) -> (gp, vp, gls)`` (the
+    full update of noisy targets near the end of warm-up or on unstable
+    runs, `activesample_vbmc.m:46-76, 429-473`) the GP hyperparameters are
+    re-trained and the VP re-fitted after each acquired point, gated on the
+    fractional effective sample size when
+    ``options.active_sample_fess_thresh`` < 1; without one the GP keeps its
+    hyperparameters. ``delta_smoothing`` (D,) is the GP smoothing bandwidth
+    of the acquisition (`acqwrapper_vbmc.m:12-15`), None for none.
+    ``optim_state`` carries the streak of repeated observations of a noisy
+    target; ``search_cache`` (transformed space) feeds the search set when
     ``options.search_cache_frac`` > 0."""
     D = vp.D
     dt, dev = gp.X.dtype, gp.X.device
@@ -408,7 +362,7 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
     repeat_obs = (logger.noise_flag and options.max_repeated_observations > 0
                   and optim_state is not None)
     # The default composition with CMA-ES from the VP's moments goes
-    # through _propose_point(_is); rounding and the repeated-observation
+    # through _propose_point; rounding and the repeated-observation
     # check need steps between the sweep and the evaluation.
     fused_ok = (options.search_cache_frac == 0
                 and options.hpd_search_frac == 0
@@ -425,16 +379,13 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                   max_evals=options.search_max_fun_evals,
                   popsize=options.search_cmaes_popsize)
     is_sizes = dict(
-        n_is_vp=int(options.active_importance_sampling_vp_samples),
-        n_is_box=int(options.active_importance_sampling_box_samples),
-        n_is_mcmc=int(options.active_importance_sampling_mcmc_samples),
+        n_vp=int(options.active_importance_sampling_vp_samples),
+        n_box=int(options.active_importance_sampling_box_samples),
+        n_mcmc=int(options.active_importance_sampling_mcmc_samples),
         mh_steps=int(options.active_importance_sampling_mh_steps),
         fess_thresh=float(options.active_importance_sampling_fess_thresh))
-    # Bandwidth smoothing (`acqwrapper_vbmc.m:12-15`): the orchestrator
-    # sets delta when options.bandwidth > 0.
-    delta_sm = getattr(options, "delta_smoothing", None)
-    smooth = delta_sm is not None
-    delta = t(delta_sm) if smooth else None
+    smooth = delta_smoothing is not None
+    delta = t(delta_smoothing) if smooth else None
     sb_lb, sb_ub = t(sb.lb), t(sb.ub)
     gls = t(_geomean_length_scale(cfg, gp))
     insigma_vp = None      # the VP's scales, until the VP changes
@@ -442,49 +393,44 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
     for i in range(n_points):
         with torch.no_grad():
             state = AcqState(
-                ymax=t(logger.ymax), tol_var=t(tol_gp_var),
+                ymax=t(logger.ymax), tol_var=t(options.tol_gp_var),
                 lb_eps_orig=t(lb_eps), ub_eps_orig=t(ub_eps),
                 regularize=True, gp_length_scale=gls,
                 var_log_joint=(_var_log_joint(cfg, gp, vp)
                                if acq_name == "eig" else None),
                 delta=delta)
-            if fused_ok and use_is:
-                x_best = _propose_point_is(cfg, acq_name, gen, vp, gp, state,
-                                           sb_lb, sb_ub, **is_sizes, **common)
-            elif fused_ok:
-                x_best = _propose_point(cfg, acq_name, gen, vp, gp, state,
-                                        sb_lb, sb_ub, smooth=smooth, **common)
+            # The importance-sampling set is rebuilt for every point: the GP
+            # changes as evaluations accrue (`activesample_vbmc.m:208-211`).
+            ais = None
+            if use_is:
+                with span("is_set"):
+                    ais = build_is_state_core(gen, cfg, acq_name, vp, gp,
+                                              **is_sizes)
+
+            def sweep(Xs):
+                if ais is not None:
+                    return sweep_is_acquisition(cfg, acq_name, Xs, vp, gp,
+                                                state, ais)
+                return sweep_acquisition(cfg, acq_name, Xs, vp, gp, state,
+                                         smooth=smooth)
+
+            def f_batch(xs, st=state):
+                if ais is not None:
+                    return evaluate_is_acquisition(cfg, acq_name, xs, vp, gp,
+                                                   st, ais)
+                return evaluate_acquisition(cfg, acq_name, xs, vp, gp, st,
+                                            smooth=smooth)
+
+            if fused_ok:
+                x_best = _propose_point(gen, vp, gp, sweep, f_batch, sb_lb,
+                                        sb_ub, **common)
             else:
-                # The importance-sampling set is rebuilt for every point:
-                # the GP changes as evaluations accrue
-                # (`activesample_vbmc.m:208-211`).
-                ais = None
-                if use_is:
-                    with span("is_set"):
-                        ais = build_is_state_core(
-                            gen, cfg, acq_name, vp, gp, is_sizes["n_is_vp"],
-                            is_sizes["n_is_box"], is_sizes["n_is_mcmc"],
-                            mh_steps=is_sizes["mh_steps"],
-                            fess_thresh=is_sizes["fess_thresh"])
-
-                def f_batch(xs, st=state):
-                    if ais is not None:
-                        return evaluate_is_acquisition(cfg, acq_name, xs, vp,
-                                                       gp, st, ais)
-                    return evaluate_acquisition(cfg, acq_name, xs, vp, gp, st,
-                                                smooth=smooth)
-
                 with span("search"):
                     Xs = real_to_int(logger.trinfo, get_search_points(
                         gen, ns, vp, logger, sb, options,
                         search_cache=search_cache), integer_mask)
                 with span("sweep"):
-                    if ais is not None:
-                        acq = sweep_is_acquisition(cfg, acq_name, Xs, vp, gp,
-                                                   state, ais)
-                    else:
-                        acq = sweep_acquisition(cfg, acq_name, Xs, vp, gp,
-                                                state, smooth=smooth)
+                    acq = sweep(Xs)
                 with span("refine"):
                     acq = torch.where(torch.isfinite(acq), acq, torch.inf)
                     best = torch.argmin(acq)
@@ -556,9 +502,10 @@ def active_sample(gen: torch.Generator, cfg: GPConfig,
                  float(np.sqrt(max(float(vtot_q[0]), 0.0)))))
         if i == n_points - 1:
             break
-        if full_update and quick_updater is not None:
+        if quick_updater is not None:
             with span("full_update"):
                 do_update = True
+                fess_thresh = options.active_sample_fess_thresh
                 if fess_thresh < 1.0:
                     # fESS gate (`activesample_vbmc.m:436-445`): skip the
                     # retrain and refit while the VP still matches the

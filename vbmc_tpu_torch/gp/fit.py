@@ -16,7 +16,7 @@ from vbmc_tpu_torch.gp.config import (
     GPConfig, MEAN_NEGQUAD, MEAN_CONST, MEAN_SE, MEAN_NEGQUADFIXISO,
     MEAN_NEGQUADFIX, MEAN_NEGQUADSEFIX, MEAN_NEGQUADMIX)
 from vbmc_tpu_torch.gp import core
-from vbmc_tpu_torch.gp.gp import HypPrior, build_gp
+from vbmc_tpu_torch.gp.gp import HypPrior, build_gp, pad_training_data
 from vbmc_tpu_torch.gp.means import mean_info
 from vbmc_tpu_torch.gp.noise import noise_info
 from vbmc_tpu_torch.gp.outwarp import outwarp_info
@@ -24,7 +24,7 @@ from vbmc_tpu_torch.optim import minimize_lbfgs_bounded
 from vbmc_tpu_torch.samplers.ensemble import ensemble_slice_final
 from vbmc_tpu_torch.samplers.slice import slice_sample_chains
 from vbmc_tpu_torch.tracing import span
-from vbmc_tpu_torch.utils.math import bucket_n, bucket_ns, pad_to
+from vbmc_tpu_torch.utils.math import bucket_ns, bucket_pow2
 
 
 @dataclasses.dataclass
@@ -238,6 +238,23 @@ def hyp_sampler_for(cfg: GPConfig, sb: int) -> str:
     return "ensemble" if (cfg.nhyp > 20 and sb >= 8) else "slice"
 
 
+def sampler_widths(prior: HypPrior, opts: TrainOptions,
+                   default: np.ndarray) -> np.ndarray:
+    """The slice sampler's step widths: ``default`` (the design's spread or
+    the plausible box), capped by the running hyperparameter-covariance
+    widths ``opts.widths`` when they are given; when those carry a rindex
+    inflation (``opts.widths_escalated``) the cap widens to the hard range
+    where that is finite."""
+    if opts.widths is None or np.asarray(opts.widths).size != default.size:
+        return default
+    cap = default
+    if opts.widths_escalated:
+        lb, ub = prior.host_box[:2]
+        cap = np.maximum(np.where(np.isfinite(ub - lb), ub - lb, np.inf),
+                         default)
+    return np.minimum(np.asarray(opts.widths, float), cap)
+
+
 def _objective(cfg, prior, X, y, s2, mask):
     def obj(h):
         nll = (core.neg_log_marginal_likelihood(cfg, h, X, y, s2, mask)
@@ -320,14 +337,8 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
         return torch.as_tensor(np.asarray(v, np.float64), device=device,
                                dtype=dtype)
 
-    n = X.shape[0]
-    nb = bucket_n(n)
-    Xp = t(pad_to(np.asarray(X, float), nb))
-    yp = t(pad_to(np.asarray(y, float).ravel(), nb))
-    s2p = t(np.zeros(nb) if s2 is None
-            else pad_to(np.asarray(s2, float).ravel(), nb))
-    mask = torch.as_tensor(np.arange(nb) < n, device=device)
-
+    Xp, yp, s2p, mask = pad_training_data(X, y, s2, device=device,
+                                          dtype=dtype)
     prior, x0_default = assemble_hyp_prior(cfg, np.asarray(X), np.asarray(y),
                                            np.asarray(plb_tr),
                                            np.asarray(pub_tr), opts,
@@ -342,12 +353,7 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
     if hyp0 is not None and hyp0.size and hyp0.shape[-1] == nh:
         starts.append(np.asarray(hyp0, float).reshape(-1, nh))
     starts = np.unique(np.concatenate(starts, axis=0), axis=0)
-    lb_np = prior.lb.cpu().double().numpy()
-    ub_np = prior.ub.cpu().double().numpy()
-    plb_np = np.where(np.isfinite(prior.plb.cpu().double().numpy()),
-                      prior.plb.cpu().double().numpy(), lb_np)
-    pub_np = np.where(np.isfinite(prior.pub.cpu().double().numpy()),
-                      prior.pub.cpu().double().numpy(), ub_np)
+    lb_np, ub_np, plb_np, pub_np = prior.host_box
     starts = np.clip(starts, lb_np + 1e-12, ub_np - 1e-12)
     obj = _objective(cfg, prior, Xp, yp, s2p, mask)
 
@@ -378,9 +384,7 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
             map_iters = 0
     else:
         # No design: every start goes to the MAP batch, padded to 8 rows.
-        n_pad = 8
-        while n_pad < starts.shape[0]:
-            n_pad *= 2
+        n_pad = bucket_pow2(starts.shape[0])
         x0s_map = np.concatenate(
             [starts, np.tile(starts[-1:], (n_pad - starts.shape[0], 1))])
         map_iters = opts.lbfgs_iters if opts.nopts > 0 else 0
@@ -392,17 +396,7 @@ def train_gp(gen: torch.Generator, cfg: GPConfig, X: np.ndarray,
         while sb % C != 0:
             C -= 1
         keep_max = sb // C
-        if opts.widths is not None and opts.widths.size == nh:
-            if opts.widths_escalated:
-                rng_hyp = ub_np - lb_np
-                cap = np.where(np.isfinite(rng_hyp), rng_hyp, np.inf)
-                widths = np.minimum(np.asarray(opts.widths, float),
-                                    np.maximum(cap, widths_default))
-            else:
-                widths = np.minimum(np.asarray(opts.widths, float),
-                                    widths_default)
-        else:
-            widths = widths_default
+        widths = sampler_widths(prior, opts, widths_default)
         burn = opts.burnin if opts.burnin is not None else opts.thin * ns
         sampler = hyp_sampler_for(cfg, sb)
         n_rows = sb if sampler == "ensemble" else C

@@ -192,11 +192,10 @@ def _check_options(opt: ResolvedOptions):
         _canonical_acq(a)
 
 
-def _gp_train_options(state: st.OptimState, stats: st.Stats,
-                      options: ResolvedOptions, logger: FunctionLogger,
-                      uncertainty_level: int) -> TrainOptions:
+def _gp_train_options(run: _Run) -> TrainOptions:
     """GP training policy per iteration (`misc/get_GPTrainOptions.m`, the
     Ns schedule of `gptrain_vbmc.m:314-343`)."""
+    state, stats, options, logger = run.state, run.stats, run.opt, run.logger
     n = logger.n_train
     neff = logger.neff
     if state.stop_sampling == 0:
@@ -253,7 +252,7 @@ def _gp_train_options(state: st.OptimState, stats: st.Stats,
                                                options.D),
         length_prior_std=options.gp_length_prior_std,
         quadratic_mean_bound=options.gp_quadratic_mean_bound,
-        tol_sd=options.tol_sd, uncertainty_level=uncertainty_level,
+        tol_sd=options.tol_sd, uncertainty_level=logger.uncertainty_level,
         upper_length_factor=options.upper_gp_length_factor,
         outwarp_delta=state.outwarp_delta,
         outwarp_thresh_base=options.out_warp_thresh_base)
@@ -392,12 +391,133 @@ def vbmc(fun: Callable, x0=None, lb=None, ub=None, plb=None, pub=None,
     ``timers`` and ``spans``."""
     tracer = tracing.Tracer()
     with tracer.current():
-        return _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device,
-                     dtype)
+        run = _Run(tracer, fun, x0, lb, ub, plb, pub, options, device, dtype)
+        while not run.is_finished:
+            _next_iteration(run)
+            vp_old = run.vp
+            warping(run)
+            active_sampling(run)
+            gpinfo = gp_train(run)
+            fit = variational_fit(run)
+            finalize(run, vp_old, gpinfo, fit)
+            termination(run)
+            output_fcn(run)
+        return final_boost(run)
 
 
-def _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device, dtype):
-    t0 = time.monotonic()
+# What an input warp changes and its undo puts back (`vbmc.m:566-624`):
+# these fields of the run and of its OptimState, and the logger's transform.
+_WARPED = ("vp", "gp", "plb_t", "pub_t", "sb", "hyp_warm")
+_WARPED_STATE = ("hyp_runcov", "run_mean", "run_cov")
+
+
+class _Run:
+    """What one `vbmc` call carries from phase to phase; making it is the
+    call's set-up. Each span of an iteration is one function of it
+    (`warping`, `active_sampling`, `gp_train`, `variational_fit`,
+    `finalize`, `termination`, `output_fcn`), and so is `final_boost`."""
+
+    def __init__(self, tracer, fun, x0, lb, ub, plb, pub, options, device,
+                 dtype):
+        self.t0 = time.monotonic()
+        self.tracer, self.fun, self.dtype = tracer, fun, dtype
+        # the user's options (the retry's base), resolved for D, and the
+        # bounds in original space after `bounds_check`
+        self.options = VBMCOptions() if options is None else options
+        (device, opt, self.x0, self.lb, self.ub, self.plb,
+         self.pub) = _checked_call(device, x0, lb, ub, plb, pub, self.options)
+        self.device, self.opt = device, opt
+        D = opt.D
+
+        trinfo = create_trinfo(
+            self.lb, self.ub, self.plb, self.pub,
+            bounded_type=_TRANSFORM_IDS[opt.bounded_transform],
+            device=device, dtype=dtype)
+        # the plausible box, transformed
+        self.plb_t = direct_np(trinfo, self.plb[None, :])[0]
+        self.pub_t = direct_np(trinfo, self.pub[None, :])[0]
+        lb_t = direct_np(trinfo, self.lb[None, :])[0]
+        ub_t = direct_np(trinfo, self.ub[None, :])[0]
+
+        uncertainty_level = (2 if opt.specify_target_noise
+                             else (1 if opt.uncertainty_handling else 0))
+        self.logger = FunctionLogger(fun, D, trinfo,
+                                     uncertainty_level=uncertainty_level,
+                                     cache_size=opt.cache_size,
+                                     temperature=opt.temperature)
+        # the GP family; its mean's fixed centre follows the data
+        self.cfg = _gp_config(opt, uncertainty_level)
+        self.shaping = _noise_shaping if opt.noise_shaping else None
+
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(opt.seed)
+        self.rng = np.random.default_rng(opt.seed)
+        K = opt.k_warmup
+        u0 = direct_np(trinfo, self.x0[:1])[0]
+        mu_init = np.tile(u0, (K, 1)) + 1e-6 * self.rng.standard_normal((K, D))
+        self.vp = make_vp(trinfo, mu_init, sigma=1e-3, lam=np.ones(D),
+                          k_max=bucket_k(K))
+        self.gp = None
+        self.hyp_warm = None      # GP training's warm starts
+        self.elbo = self.elbo_sd = float("nan")
+
+        self.state = st.OptimState(
+            warmup=opt.warmup, vp_K=K,
+            entropy_switch=opt.entropy_switch and D >= opt.det_entropy_min_d,
+            outwarp_delta=(opt.out_warp_thresh_base
+                           if opt.fitness_shaping else None))
+        if opt.ns_gp_max <= 0:
+            self.state.stop_sampling = math.inf
+        self.stats = st.Stats()
+        self.sb = SearchBounds.init(self.plb_t, self.pub_t, lb_t, ub_t,
+                                    opt.active_search_bound)
+        # leftover starting points, in original space so that they survive
+        # input warps
+        self.search_cache = None
+        self.acq_names = tuple(_canonical_acq(a) for a in opt.search_acq_fcn)
+        self.hedge = None
+        if opt.acq_hedge and len(self.acq_names) > 1:
+            self.hedge = AcqHedge(names=list(self.acq_names),
+                                  decay=opt.acq_hedge_decay)
+        self.plot = opt.plot      # off after a failed plot
+        self.notes = []           # the iteration's
+        self.warps_made = self.warps_undone = self.quick_updates = 0
+        self.is_finished, self.exitflag, self.msg = False, 0, ""
+        if opt.display == "iter":
+            mode = "NOISY" if uncertainty_level else "EXACT"
+            print(f"Beginning variational optimization assuming {mode} "
+                  f"observations of the log-joint.")
+            print(" Iteration  f-count     Mean[ELBO]     Std[ELBO]     "
+                  "sKL-iter[q]   K[q]  Convergence  Action")
+
+    def save(self):
+        """What an input warp changes, for `restore`."""
+        return ({f: getattr(self, f) for f in _WARPED},
+                {f: getattr(self.state, f) for f in _WARPED_STATE},
+                self.logger.trinfo)
+
+    def restore(self, saved):
+        fields, state_fields, trinfo = saved
+        self.logger.retransform(trinfo)
+        vars(self).update(fields)
+        vars(self.state).update(state_fields)
+
+
+def _gp_config(opt: ResolvedOptions, uncertainty_level: int) -> GPConfig:
+    user_noise = {0: 0, 1: 2, 2: 1}[uncertainty_level]
+    if opt.noise_shaping:
+        user_noise = max(user_noise, 1)
+    return GPConfig(D=opt.D, meanfun=_MEANFUN_IDS[opt.gp_mean_fun],
+                    const_noise=1, user_noise=user_noise, output_noise=0,
+                    intmean=int(opt.gp_int_mean_fun),
+                    outwarp=(_OUTWARP_IDS[opt.gp_out_warp_fun]
+                             if opt.fitness_shaping else 0))
+
+
+def _checked_call(device, x0, lb, ub, plb, pub, options: VBMCOptions):
+    """The device checked, the options resolved for D, and the bounds and
+    starting points checked (`bounds_check`), a VP ``x0`` replaced by draws
+    from it. Returns (device, opt, x0, lb, ub, plb, pub)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -409,8 +529,6 @@ def _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device, dtype):
     # reason): keep float32 products in full float32 on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if options is None:
-        options = VBMCOptions()
     x0_from_vp = None
     if is_valid_vp(x0):
         gen0 = torch.Generator(device=x0.mu.device)
@@ -439,422 +557,354 @@ def _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device, dtype):
         # the other draws join as extra starting points, inside the bounds
         x0 = np.concatenate([x0, np.clip(x0_from_vp[1:opt.fun_eval_start],
                                          lb, ub)], axis=0)
+    return device, opt, x0, lb, ub, plb, pub
 
-    trinfo = create_trinfo(lb, ub, plb, pub,
-                           bounded_type=_TRANSFORM_IDS[opt.bounded_transform],
-                           device=device, dtype=dtype)
-    plb_t = direct_np(trinfo, plb[None, :])[0]
-    pub_t = direct_np(trinfo, pub[None, :])[0]
-    lb_t = direct_np(trinfo, lb[None, :])[0]
-    ub_t = direct_np(trinfo, ub[None, :])[0]
 
-    # GP smoothing bandwidth (`setupvars_vbmc.m:247`: delta in units of the
-    # plausible box), applied on the acquisition path as in the reference
-    # (`acqwrapper_vbmc.m:12-15`).
-    opt.delta_smoothing = (opt.bandwidth * (pub_t - plb_t)
-                           if opt.bandwidth > 0 else None)
+def _next_iteration(run: _Run):
+    """Start an iteration: its number, its notes and the entropy switch."""
+    opt, state = run.opt, run.state
+    state.iter = run.tracer.iteration = len(run.stats) + 1
+    run.notes = ["start warm-up"] if state.iter == 1 and state.warmup else []
+    if (state.entropy_switch and run.logger.func_count
+            >= opt.entropy_force_switch * opt.max_fun_evals):
+        state.entropy_switch = False
+        run.notes.append("entropy switch")
 
-    uncertainty_level = (2 if opt.specify_target_noise
-                         else (1 if opt.uncertainty_handling else 0))
-    logger = FunctionLogger(fun, D, trinfo,
-                            uncertainty_level=uncertainty_level,
-                            cache_size=opt.cache_size,
-                            temperature=opt.temperature)
-    user_noise = {0: 0, 1: 2, 2: 1}[uncertainty_level]
-    if opt.noise_shaping:
-        user_noise = max(user_noise, 1)
-    cfg = GPConfig(D=D, meanfun=_MEANFUN_IDS[opt.gp_mean_fun], const_noise=1,
-                   user_noise=user_noise, output_noise=0,
-                   intmean=int(opt.gp_int_mean_fun),
-                   outwarp=(_OUTWARP_IDS[opt.gp_out_warp_fun]
-                            if opt.fitness_shaping else 0))
-    shaping = _noise_shaping if opt.noise_shaping else None
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(opt.seed)
-    rng = np.random.default_rng(opt.seed)
-    K = opt.k_warmup
-    u0 = direct_np(trinfo, x0[:1])[0]
-    mu_init = np.tile(u0, (K, 1)) + 1e-6 * rng.standard_normal((K, D))
-    vp = make_vp(trinfo, mu_init, sigma=1e-3, lam=np.ones(D),
-                 k_max=bucket_k(K))
+def _train_gp(run: _Run, hyp0=None):
+    """GP training on the run's training set with this iteration's options
+    (`train_gp`), the mean's fixed centre moved to the incumbent first.
+    ``hyp0`` are the hyperparameter starts, by default the warm starts and
+    the recent iterations' samples. Returns (gp, info); opens no span."""
+    topts = _gp_train_options(run)
+    X_tr, y_tr, s2_tr = run.logger.training_data(noise_shaping=run.shaping,
+                                                 options=run.opt)
+    if hyp0 is None:
+        hyp0 = _collect_hyp_starts(run.stats, run.hyp_warm, topts.ninit)
+    run.cfg = _recenter_cfg(run.cfg, X_tr, y_tr)
+    return train_gp(run.gen, run.cfg, X_tr, y_tr, s2_tr, run.plb_t,
+                    run.pub_t, topts, hyp0=hyp0,
+                    host_seed=int(run.rng.integers(2 ** 31 - 1)),
+                    device=run.device, dtype=run.dtype)
 
-    state = st.OptimState(warmup=opt.warmup, vp_K=K,
-                          entropy_switch=(opt.entropy_switch
-                                          and D >= opt.det_entropy_min_d),
-                          outwarp_delta=(opt.out_warp_thresh_base
-                                         if opt.fitness_shaping else None))
-    if opt.ns_gp_max <= 0:
-        state.stop_sampling = math.inf
-    stats = st.Stats()
-    sb = SearchBounds.init(plb_t, pub_t, lb_t, ub_t, opt.active_search_bound)
 
-    gp = None
-    hyp_warm = None
-    search_cache = None    # leftover starting points, in original space
-    acq_names = tuple(_canonical_acq(a) for a in opt.search_acq_fcn)
-    hedge = None
-    if opt.acq_hedge and len(acq_names) > 1:
-        hedge = AcqHedge(names=list(acq_names), decay=opt.acq_hedge_decay)
-    is_finished = False
-    exitflag = 0
-    msg = ""
-    elbo = elbo_sd = float("nan")
-    display = opt.display in ("iter",)
-    warps = dict(made=0, undone=0)
-    quick_updates = 0
+def _fit_vp(run: _Run, vp, gp, K: int, n_fast: int, n_slow: int,
+            warmup: Optional[bool] = None, **kw):
+    """`vpoptimize` with the run's generator, GP family, warm-up (unless
+    ``warmup`` says otherwise), entropy switch and a host seed from its
+    draws; ``kw`` goes on. Opens no span."""
+    return vpoptimize(run.gen, run.cfg, vp, gp, K, run.opt,
+                      warmup=run.state.warmup if warmup is None else warmup,
+                      entropy_switch=run.state.entropy_switch,
+                      n_fast_opts=n_fast, n_slow_opts=n_slow,
+                      host_seed=int(run.rng.integers(2 ** 31 - 1)), **kw)
 
-    if display:
-        mode = "NOISY" if uncertainty_level else "EXACT"
-        print(f"Beginning variational optimization assuming {mode} "
-              f"observations of the log-joint.")
-        print(" Iteration  f-count     Mean[ELBO]     Std[ELBO]     "
-              "sKL-iter[q]   K[q]  Convergence  Action")
 
-    while not is_finished:
-        it = len(stats) + 1
-        state.iter = it
-        tracer.iteration = it
-        vp_old = vp
-        notes = []
-        if it == 1 and state.warmup:
-            notes.append("start warm-up")
+def warping(run: _Run):
+    """Input warping (`vbmc.m:530-625`): when one is due, a rotoscale warp
+    to the best iteration's posterior (`warp_input_vbmc.m`), as a
+    transaction on the run. With ``warp_undo_check`` the GP is retrained
+    and the posterior refitted in the warped space, and the warp is undone
+    if the ELBO regresses."""
+    from vbmc_tpu_torch import warp as warp_mod
+    opt, state, stats, logger = run.opt, run.state, run.stats, run.logger
+    it = state.iter
+    warp_delay = opt.warp_every_iters * max(1, state.warping_count) \
+        if opt.incremental_warp_delay else opt.warp_every_iters
+    if not (opt.warp_roto_scaling and it > 1 and not state.warmup
+            and run.gp is not None and opt.D > 1
+            and (it - state.last_warping) > warp_delay
+            and state.vp_K >= opt.warp_min_k
+            and stats.last.rindex < opt.warp_tol_reliability):
+        return
+    with tracing.span("warping"):
+        idx_b = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
+                                  frac_back=opt.best_frac_back,
+                                  rank_criterion=opt.rank_criterion)
+        before = run.save()
+        with tracing.span("rotoscale"):
+            trinfo_new = warp_mod.compute_rotoscale(
+                stats.iterations[idx_b].vp,
+                corr_thresh=opt.warp_roto_corr_thresh,
+                cov_reg=opt.warp_cov_reg)
+        seed_w = int(run.rng.integers(2 ** 31 - 1))
+        with tracing.span("bounds"):
+            run.plb_t, run.pub_t = warp_mod.update_plausible_bounds(
+                trinfo_new, run.plb, run.pub, seed_w)
+            sb_lb, sb_ub = warp_mod.remap_search_box(
+                logger.trinfo, trinfo_new, run.sb.lb, run.sb.ub, seed_w + 1)
+        with tracing.span("transform"):
+            logger.retransform(trinfo_new)
+            run.vp, run.hyp_warm = warp_mod.warp_gp_and_vp(
+                trinfo_new, run.vp, run.gp, run.cfg,
+                temperature=opt.temperature)
+        # The rotated space is unbounded; hard bounds are checked in
+        # original coordinates (`warp_input_vbmc.m:132-148`).
+        run.sb = SearchBounds(lb=sb_lb, ub=sb_ub,
+                              lb_hard=np.full(opt.D, -np.inf),
+                              ub_hard=np.full(opt.D, np.inf))
+        vars(state).update(dict.fromkeys(_WARPED_STATE))
+        state.warping_count += 1
+        state.last_warping = state.last_successful_warping = it
+        run.warps_made += 1
+        run.notes.append("rotoscale")
+        if not opt.warp_undo_check:
+            return
 
-        if (state.entropy_switch and logger.func_count
-                >= opt.entropy_force_switch * opt.max_fun_evals):
-            state.entropy_switch = False
-            notes.append("entropy switch")
+        run.gp, gpinfo = _train_gp(run, hyp0=run.hyp_warm)
+        fit = _fit_vp(run, run.vp, run.gp, state.vp_K,
+                      int(math.ceil(opt.evalopt("ns_elbo", state.vp_K))),
+                      opt.elbo_starts)
+        if (fit.elbo < run.elbo + opt.warp_tol_improvement
+                or fit.elbo_sd > (run.elbo_sd * opt.warp_tol_sd_multiplier
+                                  + opt.warp_tol_sd_base)):
+            run.restore(before)
+            state.last_successful_warping = -math.inf
+            state.warping_count += 1  # a failed warp counts twice
+            run.warps_undone += 1
+            run.notes.append("undo")
+        else:
+            run.vp = fit.vp
+            state.vp_K = int(to_np(run.vp.kmask).sum())
+            run.hyp_warm = gpinfo["hyp_full"]
+            state.recompute_var_post = True
 
-        # ------------------------------------- input warping (vbmc.m:530-625)
-        warp_delay = opt.warp_every_iters * max(1, state.warping_count) \
-            if opt.incremental_warp_delay else opt.warp_every_iters
-        do_warp = (opt.warp_roto_scaling and it > 1 and not state.warmup
-                   and gp is not None and D > 1
-                   and (it - state.last_warping) > warp_delay
-                   and state.vp_K >= opt.warp_min_k
-                   and stats.last.rindex < opt.warp_tol_reliability)
-        if do_warp:
-            with tracing.span("warping"):
-                from vbmc_tpu_torch import warp as warp_mod
-                idx_b = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
-                                          frac_back=opt.best_frac_back,
-                                          rank_criterion=opt.rank_criterion)
-                vp_for_warp = stats.iterations[idx_b].vp
-                snapshot = dict(
-                    vp=vp, gp=gp, trinfo=logger.trinfo, plb_t=plb_t.copy(),
-                    pub_t=pub_t.copy(), sb_lb=sb.lb.copy(), sb_ub=sb.ub.copy(),
-                    sb_lbh=sb.lb_hard.copy(), sb_ubh=sb.ub_hard.copy(),
-                    hyp_warm=hyp_warm, hyp_runcov=state.hyp_runcov,
-                    run_mean=state.run_mean, run_cov=state.run_cov,
-                    elbo=elbo, elbo_sd=elbo_sd)
-                trinfo_old_warp = logger.trinfo
-                with tracing.span("rotoscale"):
-                    trinfo_new = warp_mod.compute_rotoscale(
-                        vp_for_warp, corr_thresh=opt.warp_roto_corr_thresh,
-                        cov_reg=opt.warp_cov_reg)
-                seed_w = int(rng.integers(2 ** 31 - 1))
-                with tracing.span("bounds"):
-                    plb_t, pub_t = warp_mod.update_plausible_bounds(
-                        trinfo_new, plb, pub, seed_w)
-                    sb_lb_new, sb_ub_new = warp_mod.remap_search_box(
-                        trinfo_old_warp, trinfo_new, sb.lb, sb.ub,
-                        seed_w + 1)
-                with tracing.span("transform"):
-                    logger.retransform(trinfo_new)
-                    vp, hyp_warped = warp_mod.warp_gp_and_vp(
-                        trinfo_new, vp, gp, cfg, temperature=opt.temperature)
-                # The rotated space is unbounded; hard bounds are checked in
-                # original coordinates (`warp_input_vbmc.m:132-148`).
-                sb = SearchBounds(lb=sb_lb_new, ub=sb_ub_new,
-                                  lb_hard=np.full(D, -np.inf),
-                                  ub_hard=np.full(D, np.inf))
-                if opt.bandwidth > 0:
-                    opt.delta_smoothing = opt.bandwidth * (pub_t - plb_t)
-                hyp_warm = hyp_warped
+
+def active_sampling(run: _Run):
+    """Active sampling (`activesample_vbmc.m`): the initial design at the
+    first iteration, then ``fun_evals_per_iter`` points by one acquisition
+    (the hedge's choice, or one drawn from the list); near the end of
+    warm-up or on unstable runs with a full update after each point
+    (noisy-target default, `activesample_vbmc.m:46-76`)."""
+    opt, state, stats, logger = run.opt, run.state, run.stats, run.logger
+    with tracing.span("active_sampling"):
+        if state.skip_active_sampling:
+            state.skip_active_sampling = False
+            return
+        if run.gp is None:
+            cache_t, _ = initial_design(
+                run.gen, logger, opt.fun_eval_start, run.plb_t, run.pub_t,
+                x0_cache=direct_np(logger.trinfo, run.x0),
+                fvals_cache=(np.asarray(opt.fvals, float)
+                             if opt.fvals is not None else None),
+                init_design=opt.init_design)
+            if len(cache_t):
+                run.search_cache = inverse_np(logger.trinfo, cache_t)
+            return
+        if run.hedge is not None:
+            acq_name = run.hedge.choose(run.rng)
+        else:
+            acq_name = run.acq_names[int(run.rng.integers(
+                len(run.acq_names)))]
+        rindex_prev = stats.last.rindex if len(stats) else math.inf
+        quick_updater = None
+        if ((opt.active_sample_gp_update or opt.active_sample_vp_update)
+                and ((state.iter - opt.active_sample_full_update_past_warmup)
+                     <= state.last_warmup
+                     or rindex_prev
+                     > opt.active_sample_full_update_threshold)):
+            quick_updater = QuickUpdater(
+                run.cfg, opt, _gp_train_options(run), run.plb_t, run.pub_t,
+                warmup=state.warmup, entropy_switch=state.entropy_switch,
+                K=state.vp_K, do_gp=bool(opt.active_sample_gp_update),
+                do_vp=bool(opt.active_sample_vp_update),
+                noise_shaping=run.shaping)
+        # The GP smoothing bandwidth (`setupvars_vbmc.m:247`: in units of
+        # the plausible box), applied as in `acqwrapper_vbmc.m:12-15`.
+        delta = (opt.bandwidth * (run.pub_t - run.plb_t)
+                 if opt.bandwidth > 0 else None)
+        run.gp, run.vp = active_sample(
+            run.gen, run.cfg, logger, opt.fun_evals_per_iter, run.vp, run.gp,
+            run.sb, opt, acq_name=acq_name, quick_updater=quick_updater,
+            delta_smoothing=delta, optim_state=state,
+            search_cache=(direct_np(logger.trinfo, run.search_cache)
+                          if run.search_cache is not None else None))
+        if quick_updater is not None:
+            run.quick_updates += quick_updater.updates
+
+
+def gp_train(run: _Run) -> dict:
+    """GP training (`gptrain_vbmc.m`). Returns `train_gp`'s info."""
+    with tracing.span("gp_train"):
+        run.gp, gpinfo = _train_gp(run)
+        run.hyp_warm = gpinfo["hyp_full"]
+        _update_hyp_runcov(run.state, gpinfo["hyp_full"], run.opt)
+    return gpinfo
+
+
+def variational_fit(run: _Run):
+    """Variational optimization (`vpoptimize_vbmc.m`) at the mixture size
+    of `update_K`. Returns `vpoptimize`'s result."""
+    opt, state = run.opt, run.state
+    with tracing.span("variational_fit"):
+        K_new = st.update_K(state, run.stats, opt)
+        n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_new)))
+        if state.recompute_var_post or opt.always_refit_var_post:
+            n_slow = opt.elbo_starts
+            state.recompute_var_post = False
+        else:
+            n_fast = int(math.ceil(n_fast * opt.ns_elbo_incr))
+            n_slow = 1
+        fit = _fit_vp(run, run.vp, run.gp, K_new, n_fast, n_slow)
+        run.vp = fit.vp
+        state.vp_K = int(to_np(run.vp.kmask).sum())
+        run.elbo, run.elbo_sd = fit.elbo, fit.elbo_sd
+        if opt.temperature > 1:
+            # the trace and the stopping rules see the real posterior's
+            # ELBO
+            _, run.elbo, run.elbo_sd = vp_train2real(
+                run.vp, opt.temperature, run.elbo, run.elbo_sd)
+    return fit
+
+
+def finalize(run: _Run, vp_old, gpinfo: dict, fit):
+    """The iteration's statistics (`vbmc.m:740-800`): the posterior's move
+    since ``vp_old``, the max LCB, the HPD noise and the running moments,
+    recorded with the timer of the spans closed since the last record."""
+    opt, state, logger, vp, gp = run.opt, run.state, run.logger, run.vp, \
+        run.gp
+    with tracing.span("finalize"):
+        with torch.no_grad():
+            kld = to_np(vp_kldiv(vp, vp_old, n_samples=10 ** 5,
+                                 gauss_flag=opt.kl_gauss, gen=run.gen))
+            mu_t, cov_t = (to_np(a) for a in vp_moments(vp, orig_flag=False))
+            sKL_true = None
+            if opt.true_mean is not None and opt.true_cov is not None:
+                tm, tc = vp_moments(vp, orig_flag=True, n_samples=10 ** 5,
+                                    gen=run.gen)
+                kl1, kl2 = mvn_kl(tm, tc, torch.as_tensor(
+                    np.asarray(opt.true_mean, float), device=run.device,
+                    dtype=tm.dtype), torch.as_tensor(
+                    np.asarray(opt.true_cov, float), device=run.device,
+                    dtype=tm.dtype))
+                sKL_true = 0.5 * float(kl1 + kl2)
+        fbar, vtot = _predict_padded(run.cfg, gp, logger.training_data()[0])
+        sKL = max(0.0, 0.5 * float(np.sum(kld)))
+        lcbmax = float(np.max(fbar - opt.elcbo_impro_weight
+                              * np.sqrt(np.maximum(vtot, 0.0))))
+        state.sn2hpd = _estimate_sn2hpd(gp, logger, to_np(gp.sn2))
+        if state.run_mean is None:
+            state.run_mean, state.run_cov = mu_t, cov_t
+        else:
+            w_run = opt.moments_run_weight ** (logger.n_train
+                                               - state.last_run_avg)
+            state.run_mean = w_run * state.run_mean + (1 - w_run) * mu_t
+            state.run_cov = w_run * state.run_cov + (1 - w_run) * cov_t
+        state.last_run_avg = logger.n_train
+
+    run.stats.add(st.IterStats(
+        iter=state.iter, elbo=run.elbo, elbo_sd=run.elbo_sd, sKL=sKL,
+        sKL_true=sKL_true, K=state.vp_K, N=logger.n_train, neff=logger.neff,
+        func_count=logger.func_count, warmup=state.warmup,
+        pruned=fit.pruned, varss=fit.varss, lcbmax=lcbmax, vp=vp, gp=gp,
+        gp_hyp=to_np(gp.hyp)[to_np(gp.hyp_mask).astype(bool)],
+        gp_hyp_full=gpinfo["hyp_full"], gp_ns=gpinfo["ns_samples"],
+        timer={k: round(v, 4)
+               for k, v in _with_phases(run.tracer.rollup()).items()}))
+
+
+def termination(run: _Run):
+    """The stopping rules and the end of warm-up (`vbmc_termination.m`,
+    `vbmc_warmup.m`), the output warp's threshold and the hedge's
+    reward."""
+    opt, state, stats, logger = run.opt, run.state, run.stats, run.logger
+    with tracing.span("termination"):
+        stats.last.t_algoperfuneval = st.update_cost_model(state, stats)
+        run.is_finished, run.exitflag, run.msg, t_notes = \
+            st.check_termination(state, stats, opt, logger.func_count)
+        run.notes += t_notes
+        if state.warmup and state.iter > 1:
+            if opt.recompute_lcb_max:
+                state.lcbmax_vec = _recompute_lcbmax(run.cfg, run.gp, logger,
+                                                     stats, opt)
+            w_notes, trim_flag = st.check_warmup(state, stats, opt, logger)
+            run.notes += w_notes
+            if trim_flag:
+                run.gp = gp_reupdate(run.cfg, run.gp, logger)
+            if not state.warmup:
                 state.hyp_runcov = None
-                state.run_mean = None
-                state.run_cov = None
-                state.warping_count += 1
-                state.last_warping = it
-                state.last_successful_warping = it
-                warps["made"] += 1
-                notes.append("rotoscale")
+        stats.last.warmup = state.warmup
 
-                if opt.warp_undo_check:
-                    # Retrain and refit in the warped space; undo if the ELBO
-                    # regresses (vbmc.m:566-624).
-                    topts = _gp_train_options(state, stats, opt, logger,
-                                              uncertainty_level)
-                    X_tr, y_tr, s2_tr = logger.training_data(
-                        noise_shaping=shaping, options=opt)
-                    cfg = _recenter_cfg(cfg, X_tr, y_tr)
-                    gp, gpinfo_w = train_gp(
-                        gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t, topts,
-                        hyp0=hyp_warped,
-                        host_seed=int(rng.integers(2 ** 31 - 1)),
-                        device=device, dtype=dtype)
-                    res_w = vpoptimize(
-                        gen, cfg, vp, gp, state.vp_K, opt,
-                        warmup=state.warmup,
-                        entropy_switch=state.entropy_switch,
-                        n_fast_opts=int(math.ceil(
-                            opt.evalopt("ns_elbo", state.vp_K))),
-                        n_slow_opts=opt.elbo_starts,
-                        host_seed=int(rng.integers(2 ** 31 - 1)))
-                    fail = (res_w.elbo < (snapshot["elbo"]
-                                          + opt.warp_tol_improvement)
-                            or res_w.elbo_sd > (snapshot["elbo_sd"]
-                                                * opt.warp_tol_sd_multiplier
-                                                + opt.warp_tol_sd_base))
-                    if fail:
-                        vp, gp = snapshot["vp"], snapshot["gp"]
-                        logger.retransform(snapshot["trinfo"])
-                        plb_t, pub_t = snapshot["plb_t"], snapshot["pub_t"]
-                        if opt.bandwidth > 0:
-                            opt.delta_smoothing = (opt.bandwidth
-                                                   * (pub_t - plb_t))
-                        sb = SearchBounds(lb=snapshot["sb_lb"],
-                                          ub=snapshot["sb_ub"],
-                                          lb_hard=snapshot["sb_lbh"],
-                                          ub_hard=snapshot["sb_ubh"])
-                        hyp_warm = snapshot["hyp_warm"]
-                        state.hyp_runcov = snapshot["hyp_runcov"]
-                        state.run_mean = snapshot["run_mean"]
-                        state.run_cov = snapshot["run_cov"]
-                        state.last_successful_warping = -math.inf
-                        state.warping_count += 1  # a failed warp counts twice
-                        warps["undone"] += 1
-                        notes.append("undo")
-                    else:
-                        vp = res_w.vp
-                        state.vp_K = int(to_np(vp.kmask).sum())
-                        hyp_warm = gpinfo_w["hyp_full"]
-                        state.recompute_var_post = True
-
-        # ------------------------------------------------ active sampling
-        with tracing.span("active_sampling"):
-            if state.skip_active_sampling:
-                state.skip_active_sampling = False
-            elif gp is None:
-                cache_t, _ = initial_design(
-                    gen, logger, opt.fun_eval_start, plb_t, pub_t,
-                    x0_cache=direct_np(trinfo, x0),
-                    fvals_cache=(np.asarray(opt.fvals, float)
-                                 if opt.fvals is not None else None),
-                    init_design=opt.init_design)
-                if len(cache_t):
-                    # kept in original space, so that it survives input warps
-                    search_cache = inverse_np(logger.trinfo, cache_t)
-            else:
-                if hedge is not None:
-                    acq_name = hedge.choose(rng)
-                else:
-                    acq_name = acq_names[int(rng.integers(len(acq_names)))]
-                # Full per-point updates near the end of warm-up or on unstable
-                # runs (noisy-target default, `activesample_vbmc.m:46-76`).
-                rindex_prev = stats.last.rindex if len(stats) else math.inf
-                full_update = (
-                    (opt.active_sample_gp_update
-                     or opt.active_sample_vp_update)
-                    and ((it - opt.active_sample_full_update_past_warmup)
-                         <= state.last_warmup
-                         or rindex_prev
-                         > opt.active_sample_full_update_threshold))
-                quick_updater = None
-                if full_update:
-                    quick_updater = QuickUpdater(
-                        cfg, opt, _gp_train_options(state, stats, opt, logger,
-                                                    uncertainty_level),
-                        plb_t, pub_t, warmup=state.warmup,
-                        entropy_switch=state.entropy_switch, K=state.vp_K,
-                        do_gp=bool(opt.active_sample_gp_update),
-                        do_vp=bool(opt.active_sample_vp_update),
-                        noise_shaping=shaping)
-                gp, vp = active_sample(
-                    gen, cfg, logger, opt.fun_evals_per_iter, vp, gp, sb, opt,
-                    acq_name=acq_name, tol_gp_var=opt.tol_gp_var,
-                    full_update=full_update, quick_updater=quick_updater,
-                    fess_thresh=opt.active_sample_fess_thresh,
-                    optim_state=state,
-                    search_cache=(direct_np(logger.trinfo, search_cache)
-                                  if search_cache is not None else None))
-                if quick_updater is not None:
-                    quick_updates += quick_updater.updates
-
-        # ------------------------------------------------------ GP training
-        with tracing.span("gp_train"):
-            topts = _gp_train_options(state, stats, opt, logger,
-                                      uncertainty_level)
-            X_tr, y_tr, s2_tr = logger.training_data(noise_shaping=shaping,
-                                                     options=opt)
-            hyp0 = _collect_hyp_starts(stats, hyp_warm, topts.ninit)
-            cfg = _recenter_cfg(cfg, X_tr, y_tr)
-            gp, gpinfo = train_gp(gen, cfg, X_tr, y_tr, s2_tr, plb_t, pub_t,
-                                  topts, hyp0=hyp0,
-                                  host_seed=int(rng.integers(2 ** 31 - 1)),
-                                  device=device, dtype=dtype)
-            hyp_warm = gpinfo["hyp_full"]
-            _update_hyp_runcov(state, gpinfo["hyp_full"], opt)
-
-        # ------------------------------------------- variational optimization
-        with tracing.span("variational_fit"):
-            K_new = st.update_K(state, stats, opt)
-            n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_new)))
-            if state.recompute_var_post or opt.always_refit_var_post:
-                n_slow = opt.elbo_starts
-                state.recompute_var_post = False
-            else:
-                n_fast = int(math.ceil(n_fast * opt.ns_elbo_incr))
-                n_slow = 1
-            res = vpoptimize(gen, cfg, vp, gp, K_new, opt, warmup=state.warmup,
-                             entropy_switch=state.entropy_switch,
-                             n_fast_opts=n_fast, n_slow_opts=n_slow,
-                             host_seed=int(rng.integers(2 ** 31 - 1)))
-            vp = res.vp
-            state.vp_K = int(to_np(vp.kmask).sum())
-            elbo, elbo_sd = res.elbo, res.elbo_sd
-            if opt.temperature > 1:
-                # the trace and the stopping rules see the real posterior's
-                # ELBO
-                _, elbo, elbo_sd = vp_train2real(vp, opt.temperature, elbo,
-                                                 elbo_sd)
-
-        # ------------------------------------------------------- finalize
-        with tracing.span("finalize"):
+        # Fitness-shaping threshold check (vbmc.m:838-846): raise the
+        # warp's threshold when the posterior's tail of low density reaches
+        # too far below ymax.
+        if (state.outwarp_delta is not None
+                and state.R < opt.warp_tol_reliability):
             with torch.no_grad():
-                kld = to_np(vp_kldiv(vp, vp_old, n_samples=10 ** 5,
-                                     gauss_flag=opt.kl_gauss, gen=gen))
-                mu_t, cov_t = (to_np(a)
-                               for a in vp_moments(vp, orig_flag=False))
-                sKL_true = None
-                if opt.true_mean is not None and opt.true_cov is not None:
-                    tm, tc = vp_moments(vp, orig_flag=True, n_samples=10 ** 5,
-                                        gen=gen)
-                    kl1, kl2 = mvn_kl(tm, tc, torch.as_tensor(
-                        np.asarray(opt.true_mean, float), device=device,
-                        dtype=tm.dtype), torch.as_tensor(
-                        np.asarray(opt.true_cov, float), device=device,
-                        dtype=tm.dtype))
-                    sKL_true = 0.5 * float(kl1 + kl2)
-            fbar, vtot = _predict_padded(cfg, gp, X_tr)
-            sKL = max(0.0, 0.5 * float(np.sum(kld)))
-            lcbmax = float(np.max(fbar - opt.elcbo_impro_weight
-                                  * np.sqrt(np.maximum(vtot, 0.0))))
-            state.sn2hpd = _estimate_sn2hpd(gp, logger, to_np(gp.sn2))
-            if state.run_mean is None:
-                state.run_mean, state.run_cov = mu_t, cov_t
-                state.last_run_avg = logger.n_train
-            else:
-                w_run = opt.moments_run_weight ** (logger.n_train
-                                                   - state.last_run_avg)
-                state.run_mean = w_run * state.run_mean + (1 - w_run) * mu_t
-                state.run_cov = w_run * state.run_cov + (1 - w_run) * cov_t
-                state.last_run_avg = logger.n_train
+                Xrnd = to_np(vp_rnd(run.vp, run.gen, 2 ** 14,
+                                    orig_flag=False))
+            ymu, _ = _predict_padded(run.cfg, run.gp, Xrnd)
+            ydelta = max(0.0, logger.ymax - float(np.quantile(ymu, 1e-3)))
+            if (ydelta > state.outwarp_delta * opt.out_warp_thresh_tol
+                    and state.R < 1):
+                state.outwarp_delta *= opt.out_warp_thresh_mult
 
-        stats.add(st.IterStats(
-            iter=it, elbo=elbo, elbo_sd=elbo_sd, sKL=sKL, sKL_true=sKL_true,
-            K=state.vp_K, N=logger.n_train, neff=logger.neff,
-            func_count=logger.func_count, warmup=state.warmup,
-            pruned=res.pruned, varss=res.varss, lcbmax=lcbmax, vp=vp, gp=gp,
-            gp_hyp=to_np(gp.hyp)[to_np(gp.hyp_mask).astype(bool)],
-            gp_hyp_full=gpinfo["hyp_full"], gp_ns=gpinfo["ns_samples"],
-            timer={k: round(v, 4)
-                   for k, v in _with_phases(tracer.rollup()).items()}))
-        with tracing.span("termination"):
-            stats.last.t_algoperfuneval = st.update_cost_model(state, stats)
+        # Hedge reward: ELCBO improvement over the previous iteration
+        # (`vbmc.m:848-850`, `acqhedge_vbmc.m:28-56`).
+        if run.hedge is not None and state.iter > 1:
+            prev = stats.iterations[-2]
+            impro = ((run.elbo - opt.elcbo_impro_weight * run.elbo_sd)
+                     - (prev.elbo - opt.elcbo_impro_weight * prev.elbo_sd))
+            run.hedge.update(impro, opt.fun_evals_per_iter)
 
-            # -------------------------------------------- termination & warmup
-            is_finished, exitflag, msg, t_notes = st.check_termination(
-                state, stats, opt, logger.func_count)
-            notes += t_notes
-            if state.warmup and it > 1:
-                if opt.recompute_lcb_max:
-                    state.lcbmax_vec = _recompute_lcbmax(cfg, gp, logger,
-                                                         stats, opt)
-                w_notes, trim_flag = st.check_warmup(state, stats, opt, logger)
-                notes += w_notes
-                if trim_flag:
-                    gp = gp_reupdate(cfg, gp, logger)
-                if not state.warmup:
-                    state.hyp_runcov = None
-            stats.last.warmup = state.warmup
 
-            # Fitness-shaping threshold check (vbmc.m:838-846): raise the
-            # warp's threshold when the posterior's tail of low density reaches
-            # too far below ymax.
-            if (state.outwarp_delta is not None
-                    and state.R < opt.warp_tol_reliability):
-                with torch.no_grad():
-                    Xrnd = to_np(vp_rnd(vp, gen, 2 ** 14, orig_flag=False))
-                ymu, _ = _predict_padded(cfg, gp, Xrnd)
-                ydelta = max(0.0, logger.ymax - float(np.quantile(ymu, 1e-3)))
-                if (ydelta > state.outwarp_delta * opt.out_warp_thresh_tol
-                        and state.R < 1):
-                    state.outwarp_delta *= opt.out_warp_thresh_mult
+def output_fcn(run: _Run):
+    """The user's ``output_fcn``, which may stop the run, and the live plot
+    (`private/vbmc_iterplot.m`); then the iteration's display line."""
+    opt, state, logger = run.opt, run.state, run.logger
+    with tracing.span("output_fcn"):
+        if opt.output_fcn is not None:
+            stop_req = opt.output_fcn(dict(
+                iteration=state.iter, elbo=run.elbo, elbo_sd=run.elbo_sd,
+                sKL=run.stats.last.sKL, K=state.vp_K, rindex=state.R,
+                func_count=logger.func_count, vp=run.vp,
+                warmup=state.warmup, timer=run.stats.last.timer))
+            if stop_req:
+                run.is_finished = True
+                run.msg = run.msg or "Inference stopped by the user OutputFcn."
 
-            # Hedge reward: ELCBO improvement over the previous iteration
-            # (`vbmc.m:848-850`, `acqhedge_vbmc.m:28-56`).
-            if hedge is not None and it > 1:
-                prev = stats.iterations[-2]
-                impro = ((elbo - opt.elcbo_impro_weight * elbo_sd)
-                         - (prev.elbo - opt.elcbo_impro_weight * prev.elbo_sd))
-                hedge.update(impro, opt.fun_evals_per_iter)
+        # A failed plot turns plotting off with a warning, as in the
+        # reference.
+        if run.plot:
+            from vbmc_tpu_torch.plotting import iteration_plot
+            try:
+                iteration_plot(run.stats, run.vp, logger)
+            except Exception as e:
+                import warnings
+                warnings.warn(f"iteration plot disabled: {e!r}")
+                run.plot = False
 
-        with tracing.span("output_fcn"):
-            if opt.output_fcn is not None:
-                stop_req = opt.output_fcn(dict(
-                    iteration=it, elbo=elbo, elbo_sd=elbo_sd, sKL=sKL,
-                    K=state.vp_K, rindex=state.R, func_count=logger.func_count,
-                    vp=vp, warmup=state.warmup, timer=stats.last.timer))
-                if stop_req:
-                    is_finished = True
-                    msg = msg or "Inference stopped by the user OutputFcn."
+    if opt.display == "iter":
+        print(f" {state.iter:9d} {logger.func_count:8d} {run.elbo:14.2f} "
+              f"{run.elbo_sd:13.2f} {run.stats.last.sKL:15.2f} "
+              f"{state.vp_K:6d} {state.R:12.3g}     {', '.join(run.notes)}")
 
-            # Live iteration plot (`private/vbmc_iterplot.m`). A failed plot
-            # turns plotting off with a warning, as in the reference.
-            if opt.plot:
-                from vbmc_tpu_torch.plotting import iteration_plot
-                try:
-                    iteration_plot(stats, vp, logger)
-                except Exception as e:
-                    import warnings
-                    warnings.warn(f"iteration plot disabled: {e!r}")
-                    opt.plot = False
 
-        if display:
-            print(f" {it:9d} {logger.func_count:8d} {elbo:14.2f} "
-                  f"{elbo_sd:13.2f} {sKL:15.2f} {state.vp_K:6d} "
-                  f"{state.R:12.3g}     {', '.join(notes)}")
-
-    # ---------------------------------------------------------- finalize run
+def final_boost(run: _Run) -> VBMCResult:
+    """The best iteration's posterior, boosted to ``min_final_components``
+    (`misc/finalboost_vbmc.m`) and, for a run that did not converge, the
+    retry from it (`vbmc.m:968-1009`). Returns the call's result."""
+    opt, stats = run.opt, run.stats
     with tracing.span("final_boost"):
         idx_best = st.best_iteration(stats, safe_sd=opt.best_safe_sd,
                                      frac_back=opt.best_frac_back,
                                      rank_criterion=opt.rank_criterion)
-        vp_best = stats.iterations[idx_best].vp
-        elbo = stats.iterations[idx_best].elbo
-        elbo_sd = stats.iterations[idx_best].elbo_sd
-
-        # Final boost to MinFinalComponents (`misc/finalboost_vbmc.m`), with
-        # the GP of the best iteration (`finalboost_vbmc.m:36`).
-        vp_train = vp_best
-        K_best = int(to_np(vp_best.kmask).sum())
+        best = stats.iterations[idx_best]
+        vp_fit, elbo, elbo_sd = best.vp, best.elbo, best.elbo_sd
+        # with the GP of the best iteration (`finalboost_vbmc.m:36`)
+        K_best = int(to_np(best.vp.kmask).sum())
         K_boost = max(opt.min_final_components, K_best)
         if K_best < K_boost:
-            n_fast = int(math.ceil(opt.evalopt("ns_elbo", K_boost)
-                                   * opt.ns_elbo_incr))
-            gp_best = stats.iterations[idx_best].gp or gp
-            res_boost = vpoptimize(
-                gen, cfg, vp_best, gp_best, K_boost, opt, warmup=False,
-                entropy_switch=state.entropy_switch, n_fast_opts=n_fast,
-                n_slow_opts=1, n_ent=opt.evalopt("ns_ent_boost", K_boost),
+            res_boost = _fit_vp(
+                run, best.vp, best.gp or run.gp, K_boost,
+                int(math.ceil(opt.evalopt("ns_elbo", K_boost)
+                              * opt.ns_elbo_incr)), 1, warmup=False,
+                n_ent=opt.evalopt("ns_ent_boost", K_boost),
                 n_ent_fine=opt.evalopt("ns_ent_fine_boost", K_boost),
                 n_ent_fast=opt.evalopt("ns_ent_fast_boost", K_boost),
-                prune=False, host_seed=int(rng.integers(2 ** 31 - 1)))
-            vp_fit = res_boost.vp
-            elbo, elbo_sd = res_boost.elbo, res_boost.elbo_sd
-        else:
-            vp_fit = vp_best
+                prune=False)
+            vp_fit, elbo, elbo_sd = res_boost.vp, res_boost.elbo, \
+                res_boost.elbo_sd
         vp = vp_fit
         if opt.temperature > 1:
             # Into real space once: the boost's ELBO is the tempered
@@ -864,51 +914,61 @@ def _vbmc(tracer, fun, x0, lb, ub, plb, pub, options, device, dtype):
             if K_best < K_boost:
                 elbo, elbo_sd = elbo_real, sd_real
 
-        stable = stats.iterations[idx_best].stable
-        convergence = "probable" if stable else "no"
-        if exitflag == 0 and not stable:
-            msg = msg or ("Inference terminated without reaching stability; "
-                          "examine the run diagnostics.")
+        convergence = "probable" if best.stable else "no"
+        if run.exitflag == 0 and not best.stable:
+            run.msg = run.msg or ("Inference terminated without reaching "
+                                  "stability; examine the run diagnostics.")
         if opt.display in ("iter", "final"):
-            print(msg)
+            print(run.msg)
             print(f"Estimated ELBO: {float(elbo):.3f} +/- "
                   f"{float(elbo_sd):.3f} [{convergence} convergence, "
-                  f"{logger.func_count} fcn evals]")
+                  f"{run.logger.func_count} fcn evals]")
+        res2 = _retry(run, vp_fit, elbo, elbo_sd)
+        if res2 is not None:
+            return res2
 
-        # Automatic retry from the best posterior (`vbmc.m:968-1009`), on
-        # the same device and dtype, warm-started from the training-space VP.
-        # Unlike the reference (`vbmc_tpu/main.py:908-917`) no `except` keeps
-        # the first result when the second run fails: a failure there raises
-        # (ROADMAP Queue 3 u). Both ELBOs it compares are the real
-        # posterior's; the reference converts a tempered run's ELBO after the
-        # retry, and twice when no boost ran (ROADMAP Queue 3 aa).
-        if exitflag < 1 and opt.retry_max_fun_evals > 0:
-            if display:
-                print("Attempting a second inference run from the current "
-                      "posterior.")
-            retry_user = dataclasses.replace(
-                options, max_fun_evals=opt.retry_max_fun_evals,
-                retry_max_fun_evals=0, seed=opt.seed + 1)
-            res2 = vbmc(fun, vp_fit, lb, ub, None, None, options=retry_user,
-                        device=device, dtype=dtype)
-            if res2.exitflag >= 1 or (
-                    res2.elbo - opt.best_safe_sd * res2.elbo_sd
-                    > elbo - opt.best_safe_sd * elbo_sd):
-                res2.timers["first_run"] = time.monotonic() - t0
-                return res2
-
-    timers = _with_phases(tracer.totals())
-    timers["total"] = time.monotonic() - t0
-    overhead = (timers["total"] / logger.total_fun_eval_time - 1.0
-                if logger.total_fun_eval_time > 0 else float("inf"))
+    timers = _with_phases(run.tracer.totals())
+    timers["total"] = time.monotonic() - run.t0
+    overhead = (timers["total"] / run.logger.total_fun_eval_time - 1.0
+                if run.logger.total_fun_eval_time > 0 else float("inf"))
     return VBMCResult(
-        vp=vp, elbo=float(elbo), elbo_sd=float(elbo_sd), exitflag=exitflag,
-        message=msg, stats=stats, optim_state=state, logger=logger,
-        vp_train=vp_train, func_count=logger.func_count,
-        iterations=len(stats), convergence_status=convergence,
-        idx_best=idx_best, timers=timers, overhead=overhead,
-        warps_made=warps["made"], warps_undone=warps["undone"],
-        quick_updates=quick_updates, spans=tracer.log)
+        vp=vp, elbo=float(elbo), elbo_sd=float(elbo_sd),
+        exitflag=run.exitflag, message=run.msg, stats=stats,
+        optim_state=run.state, logger=run.logger, vp_train=best.vp,
+        func_count=run.logger.func_count, iterations=len(stats),
+        convergence_status=convergence, idx_best=idx_best, timers=timers,
+        overhead=overhead, warps_made=run.warps_made,
+        warps_undone=run.warps_undone, quick_updates=run.quick_updates,
+        spans=run.tracer.log)
+
+
+def _retry(run: _Run, vp_fit, elbo, elbo_sd) -> Optional[VBMCResult]:
+    """Automatic retry from the best posterior (`vbmc.m:968-1009`), on the
+    same device and dtype, warm-started from the training-space VP; its
+    result, when `vbmc`'s rule picks it, else None.
+
+    Unlike the reference (`vbmc_tpu/main.py:908-917`) no `except` keeps the
+    first result when the second run fails: a failure there raises (ROADMAP
+    Queue 3 u). Both ELBOs it compares are the real posterior's; the
+    reference converts a tempered run's ELBO after the retry, and twice
+    when no boost ran (ROADMAP Queue 3 aa)."""
+    opt = run.opt
+    if run.exitflag >= 1 or opt.retry_max_fun_evals <= 0:
+        return None
+    if opt.display == "iter":
+        print("Attempting a second inference run from the current "
+              "posterior.")
+    retry_user = dataclasses.replace(
+        run.options, max_fun_evals=opt.retry_max_fun_evals,
+        retry_max_fun_evals=0, seed=opt.seed + 1)
+    res2 = vbmc(run.fun, vp_fit, run.lb, run.ub, None, None,
+                options=retry_user, device=run.device, dtype=run.dtype)
+    if res2.exitflag >= 1 or (
+            res2.elbo - opt.best_safe_sd * res2.elbo_sd
+            > elbo - opt.best_safe_sd * elbo_sd):
+        res2.timers["first_run"] = time.monotonic() - run.t0
+        return res2
+    return None
 
 
 def vbmc_sweep(fun, x0=None, lb=None, ub=None, plb=None, pub=None,

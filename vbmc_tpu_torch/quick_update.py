@@ -21,12 +21,13 @@ import torch
 from vbmc_tpu_torch import elbo as eb
 from vbmc_tpu_torch.gp.config import GPConfig
 from vbmc_tpu_torch.gp.fit import (TrainOptions, assemble_hyp_prior,
-                                   hyp_sampler_for, map_sample_assemble_core)
-from vbmc_tpu_torch.gp.gp import GP, build_gp
+                                   hyp_sampler_for, map_sample_assemble_core,
+                                   sampler_widths)
+from vbmc_tpu_torch.gp.gp import GP, build_gp, pad_training_data
 from vbmc_tpu_torch.optim import fminadam, minimize_lbfgs_bounded, \
     value_and_grad
 from vbmc_tpu_torch.tracing import span
-from vbmc_tpu_torch.utils.math import bucket_n, bucket_ns, pad_to, to_np
+from vbmc_tpu_torch.utils.math import bucket_ns, to_np
 from vbmc_tpu_torch.vp import VariationalPosterior
 from vbmc_tpu_torch.vpoptim import _bucket_ent
 
@@ -100,11 +101,7 @@ class QuickUpdater:
         X, y, s2 = logger.training_data(
             noise_shaping=self.noise_shaping,
             options=o if self.noise_shaping is not None else None)
-        n = X.shape[0]
-        nb = bucket_n(n)
-        Xp, yp = t(pad_to(X, nb)), t(pad_to(y, nb))
-        s2p = t(np.zeros(nb) if s2 is None else pad_to(s2, nb))
-        mask = torch.as_tensor(np.arange(nb) < n, device=dev)
+        Xp, yp, s2p, mask = pad_training_data(X, y, s2, device=dev, dtype=dt)
 
         prior, _ = assemble_hyp_prior(cfg, X, y, self.plb_t, self.pub_t,
                                       topts, device=dev, dtype=dt)
@@ -112,22 +109,9 @@ class QuickUpdater:
         # The sample buffer follows the bucketed sample count, so the
         # sampler may change between calls (ROADMAP Queue 3 e).
         sb = bucket_ns(ns)
-        # Sampler widths from the plausible hyperparameter box, capped by
-        # the running hyperparameter-covariance widths when available.
-        lb_np, ub_np = to_np(prior.lb), to_np(prior.ub)
-        plb_np = np.where(np.isfinite(to_np(prior.plb)), to_np(prior.plb),
-                          lb_np)
-        pub_np = np.where(np.isfinite(to_np(prior.pub)), to_np(prior.pub),
-                          ub_np)
-        widths = np.maximum(pub_np - plb_np, 1e-3)
-        if topts.widths is not None and \
-                np.asarray(topts.widths).size == cfg.nhyp:
-            cap = widths
-            if topts.widths_escalated:
-                rng_hyp = ub_np - lb_np
-                cap = np.maximum(np.where(np.isfinite(rng_hyp), rng_hyp,
-                                          np.inf), widths)
-            widths = np.minimum(np.asarray(topts.widths, float), cap)
+        plb_np, pub_np = prior.host_box[2:]
+        widths = sampler_widths(prior, topts, np.maximum(pub_np - plb_np,
+                                                         1e-3))
         C = _sample_chunks(sb)
         burn = max((topts.thin * 3) // C, topts.thin)
 
@@ -138,41 +122,32 @@ class QuickUpdater:
             hyp_prev = t(np.tile(hp, (reps, 1))[:sb])
 
         self.updates += 1
-        return _quick_full_update(
-            cfg, gen, Xp, yp, s2p, mask, prior, hyp_prev, t(widths), ns,
-            burn, topts.thin, vp, K=self.K, options=o, flags=self.flags,
-            map_iters=min(topts.lbfgs_iters, 30), ns_ent_k=self.ns_ent_k,
-            ns_fine_k=self.ns_fine_k, ns_fast_k=self.ns_fast_k,
-            adam_iters=self.adam_iters, use_midpoint=self.use_midpoint,
-            step_min=self.step_min, step_max=self.step_max,
-            do_gp=self.do_gp, do_vp=self.do_vp)
+        return _quick_full_update(self, gen, Xp, yp, s2p, mask, prior,
+                                  hyp_prev, t(widths), ns, burn, vp)
 
 
-def _quick_full_update(cfg: GPConfig, gen: torch.Generator, Xp, yp, s2p, mask,
-                       prior, hyp_prev, widths, ns: int, burn: int, thin: int,
-                       vp: VariationalPosterior, *, K: int, options, flags,
-                       map_iters: int, ns_ent_k: int, ns_fine_k: int,
-                       ns_fast_k: int, adam_iters: int, use_midpoint: bool,
-                       step_min: float, step_max: float, do_gp: bool,
-                       do_vp: bool, n_jitter: int = _N_JITTER):
-    """One in-iteration full update. The GP: a short MAP polish and sampler
-    chains started at the previous samples ``hyp_prev`` (sb, nhyp), then the
-    posterior factorisation. The VP: a jitter sieve around the current VP
-    (candidate 0 is the VP itself; the others are `vbinit_vbmc.m:111-125`
-    type-1 jitters), one slow optimisation from the best, and an ELCBO pick.
+def _quick_full_update(upd: QuickUpdater, gen: torch.Generator, Xp, yp, s2p,
+                       mask, prior, hyp_prev, widths, ns: int, burn: int,
+                       vp: VariationalPosterior):
+    """One in-iteration full update of the updater ``upd``. The GP: a short
+    MAP polish and sampler chains started at the previous samples
+    ``hyp_prev`` (sb, nhyp), then the posterior factorisation. The VP: a
+    jitter sieve around the current VP (candidate 0 is the VP itself; the
+    others are `vbinit_vbmc.m:111-125` type-1 jitters), one slow
+    optimisation from the best, and an ELCBO pick.
     Returns (gp, vp, gp_length_scale (D,))."""
-    o = options
+    cfg, o, flags, K = upd.cfg, upd.options, upd.flags, upd.K
     dt, dev = Xp.dtype, Xp.device
     sb = hyp_prev.shape[0]
     with torch.no_grad():
-        if do_gp:
+        if upd.do_gp:
             C = _sample_chunks(sb)
             sampler = hyp_sampler_for(cfg, sb)
             starts = hyp_prev if sampler == "ensemble" else hyp_prev[:C]
             buf, hyp_mask, _, _ = map_sample_assemble_core(
                 cfg, gen, hyp_prev[:1], starts, widths, prior, Xp, yp, s2p,
-                mask, ns, burn, thin, sb // C, True, map_iters,
-                sampler=sampler)
+                mask, ns, burn, upd.topts.thin, sb // C, True,
+                min(upd.topts.lbfgs_iters, 30), sampler=sampler)
         else:
             buf = hyp_prev
             hyp_mask = torch.arange(sb, device=dev) < ns
@@ -181,7 +156,7 @@ def _quick_full_update(cfg: GPConfig, gen: torch.Generator, Xp, yp, s2p, mask,
             hm = hyp_mask.to(dt)
             gls = torch.exp((buf[:, :cfg.D] * hm[:, None]).sum(0)
                             / hm.sum().clamp_min(1.0))
-    if not do_vp:
+    if not upd.do_vp:
         return gp, vp, gls
 
     K_max, D = vp.mu.shape
@@ -194,7 +169,7 @@ def _quick_full_update(cfg: GPConfig, gen: torch.Generator, Xp, yp, s2p, mask,
 
     with span("sieve"):
         bnd = eb.compute_vp_bounds(gp, o, K)
-        J = n_jitter
+        J = _N_JITTER
         scale = (torch.arange(J, device=dev) > 0).to(dt)
         mu = vp.mu[None] + scale[:, None, None] * vp.sigma[None, :, None] \
             * vp.lam[None, None, :] * randn(J, K_max, D)
@@ -209,26 +184,26 @@ def _quick_full_update(cfg: GPConfig, gen: torch.Generator, Xp, yp, s2p, mask,
         thetas = eb.pack_theta(flags, mu, sigma, lam, eta)
         with torch.no_grad():
             Fs, _ = eb.negelcbo(cfg, thetas, gp, *tmpl, flags, 0.0,
-                                ns_fast_k, 0, gen, bnd=bnd,
+                                upd.ns_fast_k, 0, gen, bnd=bnd,
                                 use_bounds=True)
         best = torch.argmin(torch.where(torch.isfinite(Fs), Fs, torch.inf))
         theta0 = thetas[best][None]
 
     with span("optimize"):
-        if ns_ent_k > 0:
+        if upd.ns_ent_k > 0:
             def f_vg(th, _it):
                 def f(x):
                     F, _ = eb.negelcbo(cfg, x, gp, *tmpl, flags, beta,
-                                       ns_ent_k, 0, gen, bnd=bnd,
+                                       upd.ns_ent_k, 0, gen, bnd=bnd,
                                        use_bounds=True)
                     return F
                 return value_and_grad(f, th)
 
             res = fminadam(f_vg, theta0, tol_fun=o.tol_fun_stochastic,
-                           maxiter=adam_iters, step_min=step_min,
-                           step_max=step_max)
+                           maxiter=upd.adam_iters,
+                           step_min=upd.step_min, step_max=upd.step_max)
             cands = res.x
-            if use_midpoint:
+            if upd.use_midpoint:
                 # ELCBO-midpoint selection (`vpoptimize_vbmc.m:103-136`).
                 T = res.f_trace.shape[1]
                 masked = torch.where(torch.arange(T, device=dev)[None, :]
@@ -243,12 +218,12 @@ def _quick_full_update(cfg: GPConfig, gen: torch.Generator, Xp, yp, s2p, mask,
                 return F
             inf = torch.full_like(theta0[0], math.inf)
             cands, _ = minimize_lbfgs_bounded(obj, theta0, -inf, inf,
-                                              maxiter=adam_iters)
+                                              maxiter=upd.adam_iters)
 
     with span("pick"):
         with torch.no_grad():
-            sts = eb.elbo_stats(cfg, cands, gp, *tmpl, flags, ns_fine_k,
-                                1, gen)
+            sts = eb.elbo_stats(cfg, cands, gp, *tmpl, flags,
+                                upd.ns_fine_k, 1, gen)
         score = -sts["elbo"] + beta * torch.sqrt(sts["varF"].clamp_min(0.0))
         j = torch.argmin(torch.where(torch.isfinite(score), score,
                                      torch.inf))
