@@ -109,23 +109,49 @@ def robust_cholesky(B: torch.Tensor):
     return L, first_ok
 
 
+def _factor(B):
+    """Lower Cholesky factors of the batch B (Bt, n, n), the identity where
+    a factor fails, and which succeeded (Bt,)."""
+    L, info = torch.linalg.cholesky_ex(B)
+    ok = _chol_ok(L, info)
+    eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+    return torch.where(ok[:, None, None], L, eye), ok
+
+
+class _CholeskyOrIdentity(torch.autograd.Function):
+    """`_factor` with Cholesky's usual backward pass (Murray 2016, the
+    formula `torch.linalg.cholesky` differentiates by), zero on the rows
+    whose factor failed."""
+
+    @staticmethod
+    def forward(B):
+        return _factor(B)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        L, ok = output
+        ctx.save_for_backward(L, ok)
+        ctx.mark_non_differentiable(ok)
+
+    @staticmethod
+    def backward(ctx, gL, _):
+        L, ok = ctx.saved_tensors
+        gB = (L.mH @ gL).tril()
+        gB = 0.5 * (gB + gB.tril(-1).mH)
+        gB = torch.linalg.solve_triangular(L.mH, gB, upper=True, left=True)
+        gB = torch.linalg.solve_triangular(L, gB, upper=False, left=False)
+        return torch.where(ok[:, None, None], gB, 0.0)
+
+
 def _factor_or_identity(B):
     """Lower Cholesky factors of the batch B (Bt, n, n) and which of them
-    succeeded (Bt,); a failed factor is the identity. Where autograd can
-    reach B, a host read decides whether any failed, and those are
-    factorised again on an identity so that no NaN reaches the backward
-    pass; elsewhere the failed factors are replaced on the device, with the
-    same values and no host read."""
-    L, info = torch.linalg.cholesky_ex(B)
-    ok = _chol_ok(L.detach(), info)
+    succeeded (Bt,); a failed factor is the identity. One factorisation,
+    and nothing reads the host: where autograd can reach B, the backward
+    pass gives the failed rows a zero gradient, so no NaN reaches it and a
+    step that differentiates through it can be captured as a CUDA graph."""
     if not B.requires_grad:
-        eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
-        return torch.where(ok[:, None, None], L, eye), ok
-    if not bool(ok.all()):
-        eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
-        L = torch.linalg.cholesky_ex(
-            torch.where(ok[:, None, None], B, eye))[0]
-    return L, ok
+        return _factor(B)
+    return _CholeskyOrIdentity.apply(B)
 
 
 def _masked_basis(cfg: GPConfig, X, m):
@@ -169,11 +195,9 @@ def build_posterior(cfg: GPConfig, hyp: torch.Tensor, X, y, s2, mask):
 def neg_log_marginal_likelihood(cfg: GPConfig, hyp: torch.Tensor, X, y, s2,
                                 mask) -> torch.Tensor:
     """Masked negative log marginal likelihood (B,), differentiable in hyp.
-    Where the Cholesky fails the value is +inf and the gradient 0 (the
-    factorisation is redone on an identity so no NaN reaches autograd).
-    Where no gradient can reach the factorisation nothing is redone and
-    nothing waits for the device (`_factor_or_identity`), so a sampler's
-    step can be captured as a CUDA graph. Under an output warp the
+    Where the Cholesky fails the value is +inf and the gradient 0; nothing
+    waits for the device (`_factor_or_identity`), so a sampler's or an
+    optimiser's step can be captured as a CUDA graph. Under an output warp the
     likelihood is that of the warped observations plus the Jacobian of the
     change of variables (`gplite_core.m:196-198`); an integrated mean's
     coefficients are marginalised exactly under a vague prior

@@ -1,12 +1,15 @@
-"""One CUDA graph a call: the capture and replay that the samplers share.
+"""One CUDA graph a call: the capture and replay that the samplers and the
+L-BFGS share.
 
-A sampler whose step reads and writes a fixed set of tensors in place, and
-never waits for the device, hands that step to `Graph`. The step runs once
+A sampler or an optimiser whose step reads and writes a fixed set of
+tensors in place, and never waits for the device, hands that step to
+`Graph`. The step runs once
 for real on the device's side stream (the warm-up that cuBLAS, cuSOLVER and
 the allocator need before a capture, and the call's first step), is then
 captured there as a CUDA graph and instantiated, and each `Graph.replay`
 launches what it recorded. A host sync inside the step makes the capture
-raise. The warm-up and the capture run the batched linear algebra through
+raise; what other threads of the process do on the card meanwhile does not
+touch it. The warm-up and the capture run the batched linear algebra through
 cuSOLVER: MAGMA's batched Cholesky solve, PyTorch's choice on the card by
 default, allocates device memory, which a capture refuses. A replay runs
 what was recorded and consults no such setting.
@@ -69,11 +72,15 @@ class Graph:
         graph = torch.cuda.CUDAGraph()
         # capture_begin and capture_end, not the torch.cuda.graph context:
         # that one synchronises the device and empties the allocator's cache
-        # on entry, which every call would pay for
+        # on entry, which every call would pay for. The capture binds this
+        # thread alone: in the default ("global") mode a copy or a sync that
+        # another thread of the process makes on the card meanwhile (a sweep
+        # loading its runs' results) breaks the capture and fails there too.
         with torch.cuda.stream(side), _cusolver():
             step()
             before = kernels.launch_counts()
-            graph.capture_begin(pool=slot["pool"])
+            graph.capture_begin(pool=slot["pool"],
+                                capture_error_mode="thread_local")
             try:
                 step()
             finally:

@@ -7,7 +7,8 @@ a fixed number of steps. Here each row of the batch is one start: the
 objective maps (B, P) -> (B,), gradients come from autograd of the summed
 values (rows are independent), and a row stops when its gradient vanishes
 or its line search fails. The minima reached, not the trajectories, match
-the reference.
+the reference. The rows advance by fixed-shape trips, one line-search trial
+each (`LBFGSStarts`), which the card captures as one CUDA graph a call.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import math
 from typing import Callable
 
 import torch
+
+from vbmc_tpu_torch.graphs import Graph
+from vbmc_tpu_torch.tracing import span
 
 
 def _to_unbounded(x, lb, ub):
@@ -43,26 +47,150 @@ def value_and_grad(f: Callable, x: torch.Tensor):
     return v.detach(), g.detach()
 
 
-def _two_loop(g, S_h, Y_h, rho):
-    """Batched L-BFGS two-loop recursion; history pairs with rho = 0 are
-    skipped row by row. S_h, Y_h: lists (oldest first) of (B, P)."""
-    q = g.clone()
+def _two_loop(g, S, Y, rho):
+    """Batched L-BFGS two-loop recursion over a history ring: S, Y
+    (B, H, P) and rho (B, H), oldest pair first. A slot with rho 0 (empty,
+    or a pair with s.y <= 1e-10) adds exact zeros; the initial scaling
+    s.y / y.y is the newest pair's with rho > 0, 1 where a row has none."""
+    H = S.shape[1]
+    q = g
     alphas = []
-    for s, y, r in zip(reversed(S_h), reversed(Y_h), reversed(rho)):
-        a = r * (s * q).sum(-1)
-        q = q - a[:, None] * y
+    for i in reversed(range(H)):
+        a = rho[:, i] * (S[:, i] * q).sum(-1)
+        q = q - a[:, None] * Y[:, i]
         alphas.append(a)
-    gamma = torch.ones_like(g[:, 0])
-    for s, y, r in zip(reversed(S_h), reversed(Y_h), reversed(rho)):
-        # Most recent valid pair per row sets the initial scaling.
-        cand = (s * y).sum(-1) / (y * y).sum(-1).clamp_min(1e-300)
-        unset = gamma == 1.0
-        gamma = torch.where(unset & (r > 0), cand, gamma)
-    q = q * gamma[:, None]
-    for (s, y, r), a in zip(zip(S_h, Y_h, rho), reversed(alphas)):
-        b = r * (y * q).sum(-1)
-        q = q + s * (a - b)[:, None]
+    slots = torch.arange(H, device=g.device)
+    newest = torch.where(rho > 0, slots, -1).amax(-1, keepdim=True)
+    scale = (S * Y).sum(-1) / (Y * Y).sum(-1).clamp_min(1e-300)
+    gamma = torch.where(newest >= 0, scale.gather(1, newest.clamp_min(0)),
+                        1.0)
+    q = q * gamma
+    for i, a in zip(range(H), reversed(alphas)):
+        b = rho[:, i] * (Y[:, i] * q).sum(-1)
+        q = q + S[:, i] * (a - b)[:, None]
     return q
+
+
+def _direction(g, S, Y, rho):
+    """The L-BFGS direction d and g.d of each row; steepest descent where
+    the recursion gives no descent direction."""
+    d = -_two_loop(g, S, Y, rho)
+    gd = (g * d).sum(-1)
+    bad = ~(gd < 0)
+    return (torch.where(bad[:, None], -g, d),
+            torch.where(bad, -(g * g).sum(-1), gd))
+
+
+# Line-search trials an iteration before a row gives up.
+_MAX_TRIALS = 30
+
+
+class LBFGSStarts:
+    """Bounded L-BFGS from each row of x0 (B, P), advanced by trips. Each
+    row (start) keeps its state in fixed tensors, updated in place: its
+    point ``z`` (logit space), value ``v``, gradient ``g``, direction ``d``
+    and ``gd`` = g.d, step ``t``, trials in this iteration and iterations
+    so far, whether it is still ``searching``, its best point and value,
+    and a history ring ``S``, ``Y`` (B, history, P), ``rho`` (B, history).
+
+    A `trip` evaluates the objective and its gradient at z + t d for every
+    row and applies each row's Armijo test. A row that accepts pushes its
+    pair into its ring (rho 0 where s.y <= 1e-10), moves, stops on ``gtol``
+    or at ``maxiter`` iterations, and otherwise takes its next direction
+    and a step of 1 (its first step is 1 / |g|_1, at most 1); a row that
+    rejects halves its step, and stops after 30 trials without a move.
+    Rows are independent: each takes the iterates it takes alone. A row
+    that is done is still evaluated and nothing of it changes, so a trip
+    has one shape and a trip past every row's end changes nothing.
+    ``busy`` is the device flag that some row is searching; ``trips``
+    counts the trips run."""
+
+    def __init__(self, f: Callable, x0: torch.Tensor, lb, ub, maxiter: int,
+                 history: int = 10, gtol: float = 1e-9):
+        B, P = x0.shape
+        dt, dev = x0.dtype, x0.device
+        lb = torch.as_tensor(lb, dtype=dt, device=dev).expand_as(x0)
+        ub = torch.as_tensor(ub, dtype=dt, device=dev).expand_as(x0)
+        self.lb, self.ub = lb, ub
+        self.maxiter, self.gtol = maxiter, gtol
+
+        def obj(z):
+            return f(_to_bounded(z, lb, ub))
+
+        self.obj = obj
+        self.z = _to_unbounded(torch.minimum(torch.maximum(x0, lb), ub),
+                               lb, ub)
+        v, g = value_and_grad(obj, self.z)
+        ok = torch.isfinite(v) & torch.isfinite(g).all(-1)
+        self.v = torch.where(ok, v, math.inf)
+        self.g = torch.where(ok[:, None], g, 0.0)
+        self.zbest, self.fbest = self.z.clone(), self.v.clone()
+        self.S = self.z.new_zeros((B, history, P))
+        self.Y = torch.zeros_like(self.S)
+        self.rho = self.z.new_zeros((B, history))
+        self.n_iter, self.n_trial = (torch.zeros(B, dtype=torch.long,
+                                                 device=dev)
+                                     for _ in range(2))
+        self.searching = ok & (maxiter > 0)
+        self.d, self.gd = _direction(self.g, self.S, self.Y, self.rho)
+        self.t = (1.0 / self.g.abs().sum(-1).clamp_min(1e-300)).clamp(
+            max=1.0)
+        self.busy = self.searching.any()
+        self.trips = 0
+        self._graph = None
+
+    def trip(self):
+        """One line-search trial of every row, in place; no host read."""
+        z_try = self.z + self.t[:, None] * self.d
+        v_try, g_try = value_and_grad(self.obj, z_try)
+        ok = (torch.isfinite(v_try) & torch.isfinite(g_try).all(-1)
+              & (v_try <= self.v + 1e-4 * self.t * self.gd))
+        acc = self.searching & ok
+        rej = self.searching & ~ok
+        s, y = z_try - self.z, g_try - self.g
+        sy = (s * y).sum(-1)
+        r = torch.where(sy > 1e-10, 1.0 / sy.clamp_min(1e-300), 0.0)
+        for ring, new in ((self.S, s[:, None]), (self.Y, y[:, None]),
+                          (self.rho, r[:, None])):
+            pushed = torch.cat([ring[:, 1:], new], 1)
+            ring.copy_(torch.where(acc.view((-1,) + (1,) * (ring.dim() - 1)),
+                                   pushed, ring))
+        better = acc & (v_try < self.fbest)
+        self.zbest.copy_(torch.where(better[:, None], z_try, self.zbest))
+        self.fbest.copy_(torch.where(better, v_try, self.fbest))
+        self.z.copy_(torch.where(acc[:, None], z_try, self.z))
+        self.v.copy_(torch.where(acc, v_try, self.v))
+        self.g.copy_(torch.where(acc[:, None], g_try, self.g))
+        self.n_iter.add_(acc.long())
+        self.n_trial.copy_(torch.where(acc, 0, self.n_trial + rej.long()))
+        stop = acc & ((self.n_iter >= self.maxiter)
+                      | ~(self.g.abs().amax(-1) > self.gtol))
+        fail = rej & (self.n_trial >= _MAX_TRIALS)
+        self.searching.logical_and_(~(stop | fail))
+        d, gd = _direction(self.g, self.S, self.Y, self.rho)
+        self.d.copy_(torch.where(acc[:, None], d, self.d))
+        self.gd.copy_(torch.where(acc, gd, self.gd))
+        self.t.copy_(torch.where(acc, 1.0,
+                                 torch.where(rej, 0.5 * self.t, self.t)))
+        self.busy.copy_(self.searching.any())
+
+    def capture(self):
+        """On the card: the first trip, run for real, then captured as a
+        graph and instantiated."""
+        self._graph = Graph(self.trip, self.z.device)
+        self.trips = 1
+
+    def run(self):
+        """Trips until no row searches: the graph's replays once captured,
+        the trip itself otherwise; one flag read a trip."""
+        step = self.trip if self._graph is None else self._graph.replay
+        while bool(self.busy):
+            step()
+            self.trips += 1
+
+    def result(self):
+        """(x_best (B, P) inside the box, f_best (B,))."""
+        return _to_bounded(self.zbest, self.lb, self.ub), self.fbest
 
 
 def minimize_lbfgs_bounded(f: Callable, x0: torch.Tensor, lb, ub,
@@ -70,66 +198,17 @@ def minimize_lbfgs_bounded(f: Callable, x0: torch.Tensor, lb, ub,
                            gtol: float = 1e-9):
     """Minimise the row-separable f over the box [lb, ub] from each row of
     x0 (B, P), by L-BFGS with a backtracking Armijo line search on a logit
-    reparameterisation. Returns (x_best (B, P), f_best (B,)); non-finite
-    values count as +inf."""
-    lb = torch.as_tensor(lb, dtype=x0.dtype, device=x0.device).expand_as(x0)
-    ub = torch.as_tensor(ub, dtype=x0.dtype, device=x0.device).expand_as(x0)
-
-    def g_obj(z):
-        return f(_to_bounded(z, lb, ub))
-
-    z = _to_unbounded(torch.minimum(torch.maximum(x0, lb), ub), lb, ub)
-    v, g = value_and_grad(g_obj, z)
-    ok0 = torch.isfinite(v) & torch.isfinite(g).all(-1)
-    v = torch.where(ok0, v, math.inf)
-    g = torch.where(ok0[:, None], g, 0.0)
-    active = ok0.clone()
-    zbest, fbest = z.clone(), v.clone()
-    S_h, Y_h, rho = [], [], []
-
-    for _ in range(maxiter):
-        if not bool(active.any()):
-            break
-        d = -_two_loop(g, S_h, Y_h, rho)
-        gd = (g * d).sum(-1)
-        bad_dir = ~(gd < 0)
-        d = torch.where(bad_dir[:, None], -g, d)
-        gd = torch.where(bad_dir, -(g * g).sum(-1), gd)
-        if S_h:
-            t = torch.ones_like(v)
-        else:
-            t = (1.0 / g.abs().sum(-1).clamp_min(1e-300)).clamp(max=1.0)
-        accept = ~active
-        z_new, v_new, g_new = z.clone(), v.clone(), g.clone()
-        for _ls in range(30):
-            z_try = z + t[:, None] * d
-            v_try, g_try = value_and_grad(g_obj, z_try)
-            ok = (torch.isfinite(v_try) & torch.isfinite(g_try).all(-1)
-                  & (v_try <= v + 1e-4 * t * gd))
-            newly = ok & ~accept
-            z_new = torch.where(newly[:, None], z_try, z_new)
-            v_new = torch.where(newly, v_try, v_new)
-            g_new = torch.where(newly[:, None], g_try, g_new)
-            accept = accept | newly
-            if bool(accept.all()):
-                break
-            t = torch.where(accept, t, 0.5 * t)
-        moved = accept & active
-        s = torch.where(moved[:, None], z_new - z, 0.0)
-        y = torch.where(moved[:, None], g_new - g, 0.0)
-        sy = (s * y).sum(-1)
-        S_h.append(s)
-        Y_h.append(y)
-        rho.append(torch.where(moved & (sy > 1e-10), 1.0 / sy.clamp_min(1e-300),
-                               0.0))
-        if len(S_h) > history:
-            S_h.pop(0), Y_h.pop(0), rho.pop(0)
-        z, v, g = z_new, v_new, g_new
-        improved = moved & (v < fbest)
-        zbest = torch.where(improved[:, None], z, zbest)
-        fbest = torch.where(improved, v, fbest)
-        active = moved & (g.abs().amax(-1) > gtol)
-    return _to_bounded(zbest, lb, ub), fbest
+    reparameterisation (`LBFGSStarts`). Returns (x_best (B, P), f_best
+    (B,)); non-finite values count as +inf. On CUDA tensors a trip is
+    captured once a call as a CUDA graph, in the span "capture" with the
+    starts' first evaluation, and replayed while a row searches; f must
+    then read nothing from the host, or the capture raises."""
+    with span("capture"):
+        starts = LBFGSStarts(f, x0, lb, ub, maxiter, history, gtol)
+        if x0.device.type == "cuda":
+            starts.capture()
+    starts.run()
+    return starts.result()
 
 
 @dataclasses.dataclass
